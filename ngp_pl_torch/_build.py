@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("hash_encode_fwd", "field_tail_fwd")
+KERNELS = ("hash_encode_fwd", "field_tail_fwd", "hash_encode_bwd",
+           "field_tail_bwd", "scatter_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,10 +47,11 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> float:
+def build(names=KERNELS) -> dict:
     """Compile every listed kernel whose library is missing, all nvcc
-    processes started together.  Returns the seconds spent.  The compiler's
-    output (registers, spills, shared memory) goes to `<name>.log`."""
+    processes started together.  Returns the seconds from the start until
+    each one's nvcc finished, by kernel.  The compiler's output (registers,
+    spills, shared memory) goes to `<name>.log`."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -59,19 +61,26 @@ def build(names=KERNELS) -> float:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        (BUILD_DIR / f"{name}.log").write_text(log)
-        if proc.returncode:
-            failed.append(f"--- {name} ---\n{log}")
-        else:
-            os.replace(tmp, out)
+        with open(BUILD_DIR / f"{name}.log", "w") as log:
+            jobs.append((name, out, tmp, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed, pending, seconds = [], list(jobs), {}
+    while pending:
+        for job in list(pending):
+            name, out, tmp, proc = job
+            if proc.poll() is None:
+                continue
+            pending.remove(job)
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode:
+                text = (BUILD_DIR / f"{name}.log").read_text()
+                failed.append(f"--- {name} ---\n{text}")
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+    return seconds
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,10 @@
 """Configuration of the PyTorch port (counterpart of ngp_pl_tpu/config.py).
 
-A standalone copy of what the render slice needs: the reference renderer's
-constants, the model and render hyperparameters, and the evaluation subset of
-the training config with its argparse surface.  The port imports nothing of
-the JAX package, so the values are repeated here and the parity tests hold
-them equal.
+A standalone copy of what the port covers: the reference renderer's
+constants, the model and render hyperparameters, and the training config
+with the argparse surface of its entry points (eval and train).  The port
+imports nothing of the JAX package, so the values are repeated here and the
+parity tests hold them equal.
 """
 from __future__ import annotations
 
@@ -63,27 +63,55 @@ class NGPConfig:
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """Static rendering-path parameters of the test-view renderer."""
+    """Static rendering-path parameters (ngp_pl_tpu/config.py:81-98)."""
 
     max_samples: int = MAX_SAMPLES           # samples per ray cap
+    t_threshold: float = 1e-4                # train-time early termination
+    # flat sample-pool size as a multiple of the ray batch, train path
+    train_pool_mult: int = 32
     test_t_threshold: float = 1e-4           # early-termination transmittance
 
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The evaluation subset of the reference opt.py flags.
+    """The reference opt.py flags the port covers, with the JAX package's
+    defaults (ngp_pl_tpu/config.py:101-176).
 
     Defaults are the flagship model: scale 0.5 (one cascade, uniform steps)
     and the L=8, F=4, T=2^19 brick table.  The port's field covers F=4 and
-    the Sigmoid head only, so F and the HDR switch are not flags yet."""
+    the Sigmoid head only, so F and the HDR switch are not flags yet.  The
+    train layout defaults to "csr", the one layout the port has; the JAX
+    package's "auto" may switch to the strided layout after grid warmup."""
 
     dataset_name: str = "synthetic"
     downsample: float = 1.0
     scale: float = 0.5
     n_levels: int = 8
     log2_hashmap_size: int = 19
+    # loss (opt.py:24-29, losses.py:42-45)
+    opacity_loss_w: float = 1e-3
+    # training (opt.py:31-52)
+    batch_size: int = 8192
+    ray_sampling_strategy: str = "all_images"  # all_images|same_image
+    num_epochs: int = 30
+    iters_per_epoch: int = 1000
+    lr: float = 1e-2
+    random_bg: bool = False     # exp-stepping scenes only: refused for now
+    # optimizer constants (reference train.py:131-137)
+    adam_eps: float = 1e-15
+    lr_final_div: float = 30.0                 # cosine anneal floor = lr/30
+    # density-grid cadence (reference train.py:58-59, 160-163)
+    grid_update_interval: int = 16
+    grid_warmup_steps: int = 256
+    train_layout: str = "csr"
+    log_every: int = 100
+    exp_name: str = "exp"
     weight_path: Optional[str] = None
     seed: int = 1337
+
+    @property
+    def max_steps(self) -> int:
+        return self.num_epochs * self.iters_per_epoch
 
     def ngp_config(self) -> NGPConfig:
         return NGPConfig(
@@ -112,6 +140,26 @@ def add_eval_args(parser) -> None:
                         default=d.log2_hashmap_size)
     parser.add_argument("--weight_path", type=str, default=None)
     parser.add_argument("--seed", type=int, default=d.seed)
+
+
+def add_train_args(parser) -> None:
+    """argparse surface of the training entry point: the subset of the JAX
+    package's train.py flags (ngp_pl_tpu/config.py:185-228) that the port
+    covers, with the same names and defaults (except --train_layout)."""
+    add_eval_args(parser)
+    d = TrainConfig()
+    parser.add_argument("--batch_size", type=int, default=d.batch_size)
+    parser.add_argument("--ray_sampling_strategy", type=str,
+                        default=d.ray_sampling_strategy,
+                        choices=["all_images", "same_image"])
+    parser.add_argument("--num_epochs", type=int, default=d.num_epochs)
+    parser.add_argument("--iters_per_epoch", type=int,
+                        default=d.iters_per_epoch)
+    parser.add_argument("--lr", type=float, default=d.lr)
+    parser.add_argument("--random_bg", action="store_true")
+    parser.add_argument("--exp_name", type=str, default=d.exp_name)
+    parser.add_argument("--train_layout", type=str, default=d.train_layout,
+                        choices=["auto", "rounds", "csr", "strided"])
 
 
 def config_from_args(args) -> TrainConfig:

@@ -19,7 +19,11 @@ def get_ray_directions(H, W, K) -> np.ndarray:
 
 
 def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
-    """Camera-frame directions (N, 3) + one (3, 4) c2w pose -> world rays
-    (rays_o (N, 3), rays_d (N, 3)); rays_d is not normalized."""
+    """Camera-frame directions (N, 3) + one (3, 4) c2w pose, or one pose
+    per ray (N, 3, 4) -> world rays (rays_o (N, 3), rays_d (N, 3)); rays_d
+    is not normalized."""
+    if c2w.dim() == 3:
+        rays_d = torch.einsum("nij,nj->ni", c2w[:, :, :3], directions)
+        return c2w[:, :, 3], rays_d
     rays_d = directions @ c2w[:, :3].T
     return c2w[:, 3].expand(rays_d.shape), rays_d

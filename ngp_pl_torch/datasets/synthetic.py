@@ -77,21 +77,29 @@ def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor):
 
 
 class SyntheticDataset:
-    """Poses, intrinsics and on-demand ground truth of one split: 24 train
-    and 4 test views of 128x128 * downsample pixels."""
+    """Poses, intrinsics and ground truth of one split: `n_train` (24) train
+    or `n_test` (4) test views of img_size x img_size * downsample pixels
+    (128 by default), cameras drawn from `seed` (train) or `seed + 1` (test),
+    as ngp_pl_tpu/datasets/synthetic.py:151-189 does.
 
-    def __init__(self, split="train", downsample=1.0, device="cuda"):
+    `rays` is the ground-truth store (n_img, H*W, 3) on the dataset's
+    device, rendered at first use; test views are also rendered one at a
+    time by `image`."""
+
+    def __init__(self, split="train", downsample=1.0, device="cuda",
+                 img_size=128, n_train=24, n_test=4, seed=0):
         self.split = split
         self.device = resolve_device(device)
-        w = h = int(128 * downsample)
+        w = h = int(img_size * downsample)
         f = 1.2 * w
         self.K = np.float32([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
         self.img_wh = (w, h)
         self.directions = get_ray_directions(h, w, self.K)
+        self._rays = None
 
         train = split.startswith("train")
-        rng = np.random.default_rng(0 if train else 1)
-        n = 24 if train else 4
+        rng = np.random.default_rng(seed if train else seed + 1)
+        n = n_train if train else n_test
         poses = []
         for i in range(n):
             theta = 2 * np.pi * i / n + rng.uniform(0, 0.1)
@@ -112,6 +120,15 @@ class SyntheticDataset:
         rgb, _, _ = render_gt(torch.tensor(ro, device=self.device),
                               torch.tensor(rd, device=self.device))
         return rgb
+
+    @property
+    def rays(self) -> torch.Tensor:
+        """(n_img, H*W, 3) f32 ground-truth colours of every view, kept on
+        the dataset's device (the resident store the train step samples)."""
+        if self._rays is None:
+            self._rays = torch.stack([self.image(i)
+                                      for i in range(len(self.poses))])
+        return self._rays
 
     def test_item(self, idx: int) -> Dict:
         return {"pose": self.poses[idx], "rgb": self.image(idx)}

@@ -7,9 +7,14 @@ runs in both: `hash_table` (rows, W), `sigma_mlp` [(L*F, 64), (64, 16)],
 
 `density` is the fused hash encode + first layer (K1) followed by the
 second sigma layer as a plain matmul whose bf16 output rounding matches the
-JAX package's `_mlp_apply`.  `forward` is K1 followed by the fused field
-tail (K7).  Only the Sigmoid head of the reference geometry is covered;
-other heads raise until a later slice.
+JAX package's `_mlp_apply`; it feeds the occupancy grid and takes no
+gradient.  `forward` is K1 followed by the fused field tail (K7); when
+autograd records it, it is differentiable through `hash_encode_mlp` (K1
+forward, the table-gradient kernel backward) and `field_tail_fn` (K7
+forward, K8 backward), with gradients to the f32 table and the MLP weights
+and none to positions or directions (`need_x_grad=False`).  Only the
+Sigmoid head of the reference geometry is covered; other heads raise until
+a later slice.
 """
 from __future__ import annotations
 
@@ -21,11 +26,16 @@ from torch import nn
 
 from ngp_pl_torch.config import NGPConfig
 from ngp_pl_torch.device import resolve_device
-from ngp_pl_torch.ops.field_tail import field_tail, field_tail_supported
+from ngp_pl_torch.ops.field_tail import (
+    field_tail,
+    field_tail_fn,
+    field_tail_supported,
+)
 from ngp_pl_torch.ops.hash_encoding import (
     HashGridSpec,
     _bf,
     hash_encode_fwd,
+    hash_encode_mlp,
     init_hash_table,
     make_grid_spec,
     table_f16,
@@ -135,10 +145,12 @@ class NGP(nn.Module):
             self._table16_key = key
         return self._table16
 
+    def _xn(self, x: torch.Tensor) -> torch.Tensor:
+        return ((x + self.cfg.scale) / (2.0 * self.cfg.scale)).contiguous()
+
     def _h1(self, x: torch.Tensor) -> torch.Tensor:
-        xn = (x + self.cfg.scale) / (2.0 * self.cfg.scale)     # -> [0, 1]
-        return hash_encode_fwd(xn.contiguous(), self.table16(),
-                               self.sigma_mlp[0], self.spec)
+        return hash_encode_fwd(self._xn(x), self.table16(),
+                               self.sigma_mlp[0].detach(), self.spec)
 
     def density(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, 3) world positions in [-scale, scale]^3 -> sigma (N,)."""
@@ -147,8 +159,12 @@ class NGP(nn.Module):
 
     def forward(self, x: torch.Tensor, d: torch.Tensor):
         """(sigma (N,), rgb (N, 3)) from positions and view directions."""
-        h1 = self._h1(x)
         dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
         sh = sh_encode((dn + 1.0) * 0.5, self.cfg.sh_degree)
-        return field_tail(h1, sh, self.sigma_mlp[1], self.rgb_mlp[0],
-                          self.rgb_mlp[1], self.rgb_mlp[2])
+        ws = (self.sigma_mlp[1], self.rgb_mlp[0], self.rgb_mlp[1],
+              self.rgb_mlp[2])
+        if torch.is_grad_enabled() and self.hash_table.requires_grad:
+            h1 = hash_encode_mlp(self._xn(x), self.hash_table,
+                                 self.sigma_mlp[0], self.table16(), self.spec)
+            return field_tail_fn(h1, sh.detach(), *ws)
+        return field_tail(self._h1(x), sh, *(w.detach() for w in ws))

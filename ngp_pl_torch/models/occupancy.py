@@ -1,9 +1,11 @@
 """Occupancy ("density") grid for rendering (counterpart of
 ngp_pl_tpu/models/occupancy.py, reference models/networks.py:155-269).
 
-The grid is plain row-major (x, y, z) with one uint8 per cell.  The TPU's
-packed forms (bit lines, dilated lines, 8^3 windows) are not kept: the
-port's marcher reads the uint8 grid directly.
+The grid is plain row-major (x, y, z) with one uint8 per cell, read
+directly by the test-time marcher; the train march reads the packed 8^3
+windows (`win_rows`), rebuilt with every refresh.  The TPU's bit lines and
+dilated lines fed marches the port does not have (the z-line and segment
+marches) and are not kept.
 """
 from __future__ import annotations
 
@@ -13,7 +15,12 @@ from typing import Optional
 import torch
 
 from ngp_pl_torch.config import NEAR_DISTANCE, NGPConfig
-from ngp_pl_torch.ops.ray_march import f32_const
+from ngp_pl_torch.ops.ray_march import (
+    WIN_B,
+    WIN_WORDS,
+    f32_const,
+    occupancy_windows,
+)
 
 DENSITY_DECAY = 0.95          # EMA decay (reference train.py:58-59)
 _CELL_CHUNK = 2 ** 16         # cells per projection pass in mark_invisible
@@ -26,6 +33,7 @@ class OccupancyGridState:
     count_grid: torch.Tensor     # (C, G^3) f32 camera-coverage fraction
     occ_grid: torch.Tensor       # (C, G, G, G) uint8, the marcher's input
     mean_density: torch.Tensor   # () f32
+    win_rows: Optional[torch.Tensor] = None   # (C*(G/4)^3, 16) int32
 
 
 def init_grid_state(cfg: NGPConfig, device) -> OccupancyGridState:
@@ -34,7 +42,9 @@ def init_grid_state(cfg: NGPConfig, device) -> OccupancyGridState:
     return OccupancyGridState(
         density_grid=z, count_grid=z.clone(),
         occ_grid=torch.zeros((C, G, G, G), dtype=torch.uint8, device=device),
-        mean_density=torch.zeros((), dtype=torch.float32, device=device))
+        mean_density=torch.zeros((), dtype=torch.float32, device=device),
+        win_rows=torch.zeros((C * (G // WIN_B) ** 3, WIN_WORDS),
+                             dtype=torch.int32, device=device))
 
 
 def _coords_from_flat(idx: torch.Tensor, G: int) -> torch.Tensor:
@@ -92,24 +102,39 @@ def mark_invisible_cells(state: OccupancyGridState, K, poses, *,
 
 @torch.no_grad()
 def update_density_grid(ngp, state: OccupancyGridState, density_threshold,
-                        *, noise: Optional[torch.Tensor] = None,
+                        *, warmup: bool = True, phase: int = 0,
+                        erode: bool = False,
+                        noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None
                         ) -> OccupancyGridState:
-    """The warmup EMA refresh of every cell (networks.py:240-269), as a
-    fresh training system runs it first.  `noise` is the U(-1, 1) cell
-    jitter, (C, G^3, 3); when None it is drawn from `generator`.  Non-finite
-    densities are sanitised (NaN -> 0, +inf -> 1e10) before the EMA, and the
-    occupancy threshold is min(mean density, density_threshold).  The
-    sublattice refresh and erosion of training are a later slice."""
+    """One EMA refresh of the density grid (ngp_pl_tpu/models/occupancy.py
+    155-254, reference networks.py:240-269).
+
+    Warmup refreshes every cell; afterwards the sublattice of cells whose
+    flat index is `phase` (mod 4), the others getting a fresh density of 0,
+    so every cell decays and each is refreshed every 4 updates.  `noise` is
+    the U(-1, 1) cell jitter, (C, M, 3) for the M refreshed cells; when None
+    it is drawn from `generator` (on the generator's device).  Non-finite
+    densities are sanitised (NaN -> 0, +inf -> 1e10) before the EMA;
+    `erode` decays cells seen by few cameras faster (networks.py:258-260).
+    The occupancy threshold is min(mean density, density_threshold); the
+    uint8 grid and its packed windows are rebuilt."""
     cfg = ngp.cfg
     dev = state.density_grid.device
     G, C = cfg.grid_size, cfg.cascades
-    coords = _coords_from_flat(torch.arange(G ** 3, device=dev), G)
+    n4 = G ** 3 // 4
+    if warmup:
+        idx = torch.arange(G ** 3, device=dev)
+    else:
+        idx = int(phase) + 4 * torch.arange(n4, device=dev)
+    coords = _coords_from_flat(idx, G)
     tmp = []
     for c in range(C):
         pos, half = _cascade_world_pos(coords, c, cfg)
         if noise is None:
-            jitter = torch.rand(pos.shape, generator=generator) * 2.0 - 1.0
+            gdev = generator.device if generator is not None else "cpu"
+            jitter = (torch.rand(pos.shape, generator=generator, device=gdev)
+                      * 2.0 - 1.0)
         else:
             jitter = torch.as_tensor(noise[c], dtype=torch.float32)
         pos = pos + jitter.to(dev) * half
@@ -117,10 +142,19 @@ def update_density_grid(ngp, state: OccupancyGridState, density_threshold,
                            for i in range(0, pos.shape[0], _DENSITY_CHUNK)])
         tmp.append(torch.nan_to_num(sigma, nan=0.0, posinf=1e10, neginf=0.0))
     tmp = torch.stack(tmp)
+    if not warmup:
+        full = torch.zeros((C, n4, 4), dtype=torch.float32, device=dev)
+        full[:, :, int(phase)] = tmp
+        tmp = full.reshape(C, G ** 3)
 
     grid = state.density_grid
-    new_grid = torch.where(grid < 0, grid,
-                           torch.maximum(grid * DENSITY_DECAY, tmp))
+    if erode:
+        decay_t = torch.clamp(
+            DENSITY_DECAY ** (1.0 / torch.clamp_min(state.count_grid, 1e-10)),
+            0.1, DENSITY_DECAY)
+    else:
+        decay_t = DENSITY_DECAY
+    new_grid = torch.where(grid < 0, grid, torch.maximum(grid * decay_t, tmp))
     pos_mask = new_grid > 0
     mean_density = (torch.where(pos_mask, new_grid, 0.0).sum()
                     / torch.clamp_min(pos_mask.sum(), 1))
@@ -128,4 +162,5 @@ def update_density_grid(ngp, state: OccupancyGridState, density_threshold,
     occ = (new_grid > thr).to(torch.uint8).reshape(C, G, G, G)
     return OccupancyGridState(density_grid=new_grid,
                               count_grid=state.count_grid, occ_grid=occ,
-                              mean_density=mean_density)
+                              mean_density=mean_density,
+                              win_rows=occupancy_windows(occ))

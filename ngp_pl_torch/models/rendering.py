@@ -1,6 +1,11 @@
-"""Test-view rendering: span pre-pass, cull and the alive-ray round loop
-(counterpart of ngp_pl_tpu/models/rendering.py `scene_hits` and
-`make_device_round_renderer`; reference models/rendering.py:46-118).
+"""Rendering (counterpart of ngp_pl_tpu/models/rendering.py; reference
+models/rendering.py): the differentiable CSR train render
+(`render_rays_train_csr`, reference rendering.py:121-163) and test-view
+rendering (span pre-pass, cull and the alive-ray round loop,
+`RoundRenderer`, reference rendering.py:46-118).
+
+Train render: scene-box hits -> windowed march into the flat pool ->
+field (K1 + K7, differentiable) -> CSR compositor -> background.
 
 A frame goes: scene-box hits -> occupied-span pre-pass over a dilated
 super-grid -> cull of rays with no occupied span -> chunks of the surviving
@@ -19,19 +24,26 @@ JAX package's.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from ngp_pl_torch.config import NEAR_DISTANCE, SQRT3, RenderConfig
+from ngp_pl_torch.config import MAX_SAMPLES, NEAR_DISTANCE, SQRT3, RenderConfig
 from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.ops.intersection import ray_aabb_intersect_single
 from ngp_pl_torch.ops.ray_march import (
+    _fma,
     march_rays_test_round,
+    march_rays_train_window,
     occupied_span,
     occupied_span_prep,
 )
-from ngp_pl_torch.ops.volume_render import composite_test_round
+from ngp_pl_torch.ops.volume_render import (
+    composite_test_round,
+    composite_train,
+)
 
 MAX_ROUNDS = 512     # per chunk, as the JAX package's renderer
 
@@ -46,6 +58,77 @@ def scene_hits(rays_o, rays_d, scale: float):
     near = torch.where((near >= 0) & (near < NEAR_DISTANCE), NEAR_DISTANCE,
                        near)
     return torch.stack([near, hits[:, 1]], dim=-1)
+
+
+def compute_scene_chain_length(poses, directions, scale: float,
+                               max_samples: int = MAX_SAMPLES,
+                               subsample: int = 4096) -> int:
+    """Static dt-chain bound of a uniform-step scene: the longest in-box
+    segment of any training ray, in chain steps of dt_min, rounded up to
+    128 plus 128 (rendering.py:54-100; its exp-stepping branch comes with
+    the multi-cascade slice)."""
+    dt_min = float(SQRT3) / max_samples
+    poses = np.asarray(poses)
+    directions = np.asarray(directions)
+    if directions.shape[0] > subsample:
+        directions = directions[::directions.shape[0] // subsample]
+    range_max = 0.0
+    for pose in poses:
+        rd = directions @ pose[:, :3].T
+        ro = pose[:, 3][None, :]
+        inv = 1.0 / rd
+        lo = (-scale - ro) * inv
+        hi = (scale - ro) * inv
+        t1 = np.minimum(lo, hi).max(axis=1)
+        t2 = np.maximum(lo, hi).min(axis=1)
+        hit = (t1 <= t2) & (t2 > 0)
+        if not hit.any():
+            continue
+        near = np.maximum(t1[hit], NEAR_DISTANCE)
+        range_max = max(range_max, float((t2[hit] - near).max()))
+    if range_max <= 0:
+        return max_samples
+    steps = int(math.ceil(range_max / dt_min))
+    steps = min(int(-(-steps // 128) * 128) + 128, 2 * max_samples)
+    return max(steps, 128)
+
+
+def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
+                          rcfg: RenderConfig, pool_mult: Optional[int] = None,
+                          chain_length: int = 0) -> Dict[str, torch.Tensor]:
+    """Differentiable train render into the CSR pool, windowed-march branch
+    (rendering.py:186-238, 275-305).  Single cascade and uniform steps only;
+    the caller checks `segment_march_dmax_ok`.  Gradients reach the field's
+    parameters; positions are o + t * d with t and the rays held fixed.
+    Returns the compositor's outputs plus the pool and the march's demand
+    statistics."""
+    cfg = ngp.cfg
+    if cfg.cascades != 1 or cfg.exp_step_factor != 0.0:
+        raise NotImplementedError(
+            "the train render covers single-cascade scenes (scale <= 0.5); "
+            "multi-cascade / exp stepping is a later slice")
+    N = rays_o.shape[0]
+    hits = scene_hits(rays_o, rays_d, cfg.scale)
+    chain = chain_length or rcfg.max_samples
+    with torch.no_grad():
+        m = march_rays_train_window(
+            rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
+            grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
+            pool_size=N * (pool_mult or rcfg.train_pool_mult),
+            chain_length=chain)
+    ridx = torch.clamp(m.ray_idx, 0, N - 1)
+    o, d = rays_o[ridx], rays_d[ridx]
+    xyz = _fma(m.ts[:, None], d, o)
+    sigmas, rgbs = ngp(xyz, d)
+    out = composite_train(sigmas, rgbs, m.deltas, m.ts, m.ray_idx, m.valid,
+                          m.offsets, n_rays=N, T_threshold=rcfg.t_threshold)
+    out["rgb"] = out["rgb"] + bg_rgb[None, :] * (1.0 - out["opacity"][:, None])
+    out.update(ts=m.ts, ray_idx=m.ray_idx, offsets=m.offsets,
+               rm_samples=m.total, rm_counts=m.rm_counts,
+               chain_demand=m.chain_demand, chain_demand_q=m.chain_demand_q,
+               vr_counts=out["vr_samples"],
+               vr_samples=out["vr_samples"].sum())
+    return out
 
 
 def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:

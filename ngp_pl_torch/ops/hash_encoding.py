@@ -14,6 +14,15 @@ table precision; the TPU swizzled it into u32 lanes only as a layout trick.
 of csrc/hash_encode_fwd.cu, on a CPU tensor it runs `hash_encode_fwd_plain`,
 which keeps the TPU kernel's rounding points (bf16 trilinear weights, bf16
 weighted row values, bf16 w1, f32 accumulation).
+
+`hash_encode_bwd` is the wrapper of the table-gradient kernel
+(csrc/hash_encode_bwd.cu: K2 fused with the K5 scatter and the hashed
+levels' scatter-add), with `hash_encode_bwd_plain` beside it.
+`hash_encode_mlp` is the differentiable op (`HashEncodeMLP`, the
+counterpart of `_encode_mlp_pl_cv`, ngp_pl_tpu/ops/hash_encoding.py:516-606):
+its forward is K1, its backward that kernel plus d_w1 = feats^T g as a
+matmul, which the TPU left to XLA as well.  No position gradient is
+produced (`need_x_grad=False`, the flagship case).
 """
 from __future__ import annotations
 
@@ -269,3 +278,118 @@ def hash_encode_fwd(x: torch.Tensor, table16: torch.Tensor,
     if x.device.type == "cpu":
         return hash_encode_fwd_plain(x, table16, w1, spec, feats)
     return hash_encode_fwd_cuda(x, table16, w1, spec, feats)
+
+
+# --- backward: K2 fused with the K5 / XLA table scatters ----------------
+
+
+def hash_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
+                          spec: HashGridSpec) -> torch.Tensor:
+    """Plain PyTorch version of the table-gradient kernel (see
+    csrc/hash_encode_bwd.cu): d_table (rows, W) f32 from the gradient g
+    (N, H) of h1.  Per level and sample, d_wr[f] = bf16(g) . bf16(w1[l*F+f])
+    in f32; each of the 8 corners gets bf16(d_wr[f] * bf16(corner weight))
+    added into its table point, as the TPU's d_rows (K2) summed by the
+    per-level scatters (K5 and XLA's scatter-add)."""
+    L, F, W = spec.n_levels, spec.n_features, spec.row_width
+    slot, local, frac = slots_local_frac_lm(x.clamp(0.0, 1.0), spec)
+    p = local.to(torch.float32) + frac
+    corner = torch.tensor(_CORNER_BITS, device=x.device)
+    lanes = torch.arange(F, device=x.device)
+    d_wr = _bf(g) @ _bf(w1).T                                   # (N, L*F)
+    d_table = torch.zeros(spec.total_rows * W, dtype=torch.float32,
+                          device=x.device)
+    for l in range(L):
+        pt_c = local[l, :, None, :] + corner[None]              # (N, 8, 3)
+        w = _hat(pt_c.to(torch.float32), p[l, :, None, :])
+        w8 = _bf(w[..., 0] * w[..., 1] * w[..., 2])             # (N, 8)
+        pt = (pt_c[..., 0] * 3 + pt_c[..., 1]) * 3 + pt_c[..., 2]
+        idx = (slot[l, :, None, None] * W + pt[..., None] * F + lanes)
+        vals = _bf(d_wr[:, None, l * F:(l + 1) * F] * w8[..., None])
+        d_table.index_add_(0, idx.reshape(-1), vals.reshape(-1))
+    return d_table.reshape(spec.total_rows, W)
+
+
+def hash_encode_bwd_cuda(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
+                         spec: HashGridSpec) -> torch.Tensor:
+    """Launch the table-gradient kernel: x (N, 3) f32, g (N, 64) f32,
+    w1 (L*4, 64) f32 -> d_table (rows, 128) f32 (zeroed here, then
+    accumulated with f32 atomics)."""
+    L = spec.n_levels
+    if L > 16:
+        raise ValueError(f"at most 16 levels, got {L}")
+    N = x.shape[0]
+    for name, t, shape in (("x", x, (N, 3)), ("g", g, (N, 64)),
+                           ("w1", w1, (L * 4, 64))):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name}: want contiguous, 16-byte aligned "
+                             f"float32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    d_table = torch.zeros((spec.total_rows, 128), dtype=torch.float32,
+                          device=x.device)
+    if N == 0:
+        return d_table
+    ints = ctypes.c_int * L
+    fn = _build.library("hash_encode_bwd").hash_encode_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 5
+    err = fn(x.data_ptr(), g.data_ptr(), w1.data_ptr(), d_table.data_ptr(),
+             N, L, spec.log2_bricks, ints(*spec.resolutions),
+             ints(*spec.brick_grids), ints(*spec.offsets),
+             ints(*[int(d) for d in spec.dense]),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "hash_encode_bwd")
+    hash_encode_bwd_cuda.launches += 1
+    return d_table
+
+
+hash_encode_bwd_cuda.launches = 0
+
+
+def hash_encode_bwd(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
+                    spec: HashGridSpec) -> torch.Tensor:
+    """Table gradient of the fused hash encode + first layer: the kernel
+    for CUDA tensors, the plain version only for CPU tensors."""
+    if spec.n_features != 4 or spec.row_width != 128:
+        raise NotImplementedError(
+            "the training slice covers the F=4 brick rows; the F=2 "
+            "backward (K4) is a later slice")
+    if x.device.type == "cpu":
+        return hash_encode_bwd_plain(x, g, w1, spec)
+    return hash_encode_bwd_cuda(x, g.contiguous(), w1.contiguous(), spec)
+
+
+class HashEncodeMLP(torch.autograd.Function):
+    """h1 = hash_encode(x) @ w1 with gradients to the f32 table and w1.
+
+    The forward reads the f16 table copy (K1) and keeps the per-level
+    features; the backward returns d_table from `hash_encode_bwd` for the
+    f32 `table` parameter and d_w1 = bf16(feats)^T bf16(g) in f32."""
+
+    @staticmethod
+    def forward(ctx, x, table, w1, table16, spec):
+        feats = torch.empty((x.shape[0], spec.out_dim), dtype=torch.float32,
+                            device=x.device)
+        h1 = hash_encode_fwd(x, table16, w1, spec, feats)
+        ctx.save_for_backward(x, w1, feats)
+        ctx.spec = spec
+        return h1
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, feats = ctx.saved_tensors
+        g = g.contiguous()
+        d_w1 = _bf(feats).T @ _bf(g)
+        d_table = hash_encode_bwd(x, g, w1.detach(), ctx.spec)
+        return None, d_table, d_w1, None, None
+
+
+def hash_encode_mlp(x: torch.Tensor, table: torch.Tensor, w1: torch.Tensor,
+                    table16: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """Differentiable fused hash encode + first layer: x (N, 3) in [0, 1]^3,
+    table (rows, W) f32 parameter, w1 (L*F, H), table16 its f16 copy."""
+    return HashEncodeMLP.apply(x, table, w1, table16, spec)

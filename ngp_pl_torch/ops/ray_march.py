@@ -1,5 +1,6 @@
-"""Occupancy-guided test-time ray marching (counterpart of the test-path pieces
-of ngp_pl_tpu/ops/ray_march.py; reference models/csrc/raymarching.cu).
+"""Occupancy-guided ray marching (counterpart of the test round, the occupied
+span and the windowed train march of ngp_pl_tpu/ops/ray_march.py; reference
+models/csrc/raymarching.cu).
 
 The dt-chain has a closed form, so the k-th marching position of a ray is a
 function of (t_start, k) alone; a round evaluates the chain for all (ray, k)
@@ -17,11 +18,19 @@ Divisions by a constant go through a 0-dim tensor of the same device: on
 CUDA PyTorch turns `tensor / python_float` into a multiply by the
 reciprocal (and `python_float / tensor` is a reciprocal on both devices),
 which can move a sample by one ulp.
+
+The train march must give the JAX package's pool bit for bit: one ulp at a
+cell edge flips an occupancy bit and shifts every later slot.  XLA fuses
+`t0 + k * dt_min` and `o + t * d` into fused multiply-adds (one rounding);
+`_fma` reproduces that on both devices in float64, where these products and
+sums are exact, and rounds once to float32.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -175,3 +184,197 @@ def occupied_span(rays_o, rays_d, t1, t2, span_grid, *, scale, dt_min):
         torch.ceil((t_e - t_s) / dt_min_t).to(torch.int64) + 1,
         0)
     return t_s, t_e, span_steps
+
+
+# ---------------------------------------------------------------------------
+# Windowed train march (ngp_pl_tpu/ops/ray_march.py:401-591, 741-863)
+# ---------------------------------------------------------------------------
+
+SEGMENT_J = 8   # fine chain steps per window interval
+WIN_B = 4       # window anchor stride in cells
+WIN_P = 8       # window extent in cells per axis (8^3 bits = 16 words)
+WIN_APRON = 2   # window w covers cells [4w - 2, 4w + 6) per axis
+WIN_WORDS = WIN_P ** 3 // 32
+
+
+class MarchResults(NamedTuple):
+    """Flat sample pool ordered by (ray, t), the CSR layout of the JAX
+    package's `MarchResults`."""
+
+    ts: torch.Tensor             # (P,) sample distance along its ray
+    deltas: torch.Tensor         # (P,) integration interval
+    ray_idx: torch.Tensor        # (P,) int64 owning ray; == N in unused slots
+    valid: torch.Tensor          # (P,) bool slot validity
+    counts: torch.Tensor         # (N,) samples of each ray in the pool
+    offsets: torch.Tensor        # (N,) start slot of each ray
+    total: torch.Tensor          # () samples in the pool
+    rm_counts: torch.Tensor      # (N,) samples found by marching (pre-clip)
+    chain_demand: torch.Tensor   # () chain steps the batch needs
+    chain_demand_q: torch.Tensor  # () 99th percentile of the per-ray need
+
+
+def _f32(v: float) -> float:
+    """The float32 value of a Python constant, as a Python float."""
+    return float(np.float32(v))
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c with one rounding to float32 (XLA's fused multiply-add).
+    For the march's operands (chain steps k < 2^12 times dt_min, positions
+    and directions of order 1) the float64 product and sum are exact."""
+    a = a.double() if isinstance(a, torch.Tensor) else a
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a * b + c).float()
+
+
+def occupancy_windows(occ_grid: torch.Tensor) -> torch.Tensor:
+    """(C, G, G, G) uint8 -> (C*(G/4)^3, 16) int32 packed 8^3-cell windows.
+
+    Window w = (wx, wy, wz) covers cells [4w - 2, 4w + 6) per axis, zero
+    outside the grid; bit (lx*8 + ly)*8 + lz of its 512 is cell
+    4w - 2 + (lx, ly, lz), stored as bit b % 32 of word b // 32.  The words
+    are the JAX package's uint32 windows (`occupancy_windows`, built there
+    from bit-packed z-lines) read as int32."""
+    C, G = occ_grid.shape[0], occ_grid.shape[1]
+    NW = G // WIN_B
+    hi = WIN_P - WIN_B - WIN_APRON
+    occ = F.pad((occ_grid > 0).to(torch.int32),
+                (WIN_APRON, hi, WIN_APRON, hi, WIN_APRON, hi))
+    win = (occ.unfold(1, WIN_P, WIN_B).unfold(2, WIN_P, WIN_B)
+           .unfold(3, WIN_P, WIN_B))              # (C, NW, NW, NW, 8, 8, 8)
+    bits = win.reshape(C * NW ** 3, WIN_WORDS, 2, 16)
+    shift = torch.arange(16, dtype=torch.int32, device=occ_grid.device)
+    halves = (bits << shift).sum(dim=-1, dtype=torch.int64)   # 16-bit halves
+    words = halves[..., 0] + (halves[..., 1] << 16)
+    return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+def segment_march_dmax_ok(directions, grid_size: int = 128,
+                          max_samples: int = 1024,
+                          scale: float = 0.5) -> bool:
+    """True if the fine steps of one 8-step interval stay within one world
+    cell of its midpoint, so one window holds every step's bit
+    (ngp_pl_tpu/ops/ray_march.py:703-721)."""
+    d = np.asarray(directions)
+    dmax = float(np.sqrt((d * d).sum(axis=-1)).max())
+    cell = 2.0 * scale / grid_size
+    dt_min = SQRT3 / max_samples
+    return (SEGMENT_J - 1) / 2 * dt_min * dmax < cell
+
+
+def _cells(t, rays_o, rays_d, scale, grid_size):
+    """Per-axis int32 cells of the positions o + t * d (fused like XLA)."""
+    out = []
+    for a in range(3):
+        xyz = _fma(t, rays_d[:, a].reshape((-1,) + (1,) * (t.dim() - 1)),
+                   rays_o[:, a].reshape((-1,) + (1,) * (t.dim() - 1)))
+        u = (xyz / f32_const(scale, xyz) + 1.0) * 0.5 * grid_size
+        out.append(torch.clamp(u, 0.0, grid_size - 1.0).to(torch.int32))
+    return out
+
+
+def _occ_window_chain(rays_o, rays_d, t0, KA, win_rows, *, scale, grid_size,
+                      dt_min):
+    """Occupancy bits (N, KA, J) and positions ts (N, KA, J) of KA*J uniform
+    chain steps from t0, one window per 8-step interval, anchored at the
+    4^3 brick of the interval midpoint (ray_march.py:478-514)."""
+    dev = rays_o.device
+    J = SEGMENT_J
+    NW = grid_size // WIN_B
+    dt = _f32(dt_min)
+    c = torch.arange(KA, dtype=torch.float32, device=dev)[None, :]
+    m_t = _fma(c * J + 0.5 * (J - 1), dt, t0[:, None])          # (N, KA)
+    wx, wy, wz = (n >> 2 for n in _cells(m_t, rays_o, rays_d, scale,
+                                         grid_size))
+    widx = ((wx * NW + wy) * NW + wz).to(torch.int64)
+
+    kk = torch.arange(KA * J, dtype=torch.float32, device=dev).reshape(
+        1, KA, J)
+    ts = _fma(kk, dt, t0[:, None, None])                         # (N, KA, J)
+    local = [torch.clamp(n - ((w[:, :, None] << 2) - WIN_APRON), 0, WIN_P - 1)
+             for n, w in zip(_cells(ts, rays_o, rays_d, scale, grid_size),
+                             (wx, wy, wz))]
+    bit = (local[0] * WIN_P + local[1]) * WIN_P + local[2]
+    word = win_rows.reshape(-1)[widx[:, :, None] * WIN_WORDS + (bit >> 5)]
+    return ((word >> (bit & 31)) & 1) > 0, ts
+
+
+def qtile(per_ray_need: torch.Tensor, q: float) -> torch.Tensor:
+    """q-th percentile of a per-ray integer demand vector
+    (ray_march.py:1132-1141)."""
+    n = per_ray_need.shape[0]
+    k = max(int(q * n) - 1, 0)
+    return torch.sort(per_ray_need).values[k]
+
+
+def q99(per_ray_need: torch.Tensor) -> torch.Tensor:
+    return qtile(per_ray_need, 0.99)
+
+
+def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
+    """Compaction of the occupied candidates (N, K) into a flat pool of
+    `pool_size` slots ordered by (ray, t) (ray_march.py:741-863).
+
+    Slot p holds the (p+1)-th occupied candidate in (ray, step) order,
+    found by a sorted search of the running count; at saturation the tail
+    of the batch drops out.  The TPU stages groups of 32 candidates and
+    keeps at most pool_size/16 non-empty groups, which binds only when
+    groups hold fewer than ~16 samples on average; below that bound both
+    give the same pool (tests/test_torch_train.py checks it)."""
+    N, K = occ.shape
+    if K <= max_samples:
+        rm_counts = occ.sum(dim=1, dtype=torch.int32)
+    else:
+        incl = torch.cumsum(occ.to(torch.int32), dim=1, dtype=torch.int32)
+        occ = occ & (incl - occ.to(torch.int32) < max_samples)
+        rm_counts = torch.clamp_max(incl[:, -1], max_samples)
+    csum = torch.cumsum(rm_counts, dim=0, dtype=torch.int32)
+    offsets = csum - rm_counts
+    total = torch.clamp_max(csum[-1], pool_size)
+
+    P = pool_size
+    running = torch.cumsum(occ.reshape(-1).to(torch.int32), dim=0,
+                           dtype=torch.int32)
+    slot = torch.arange(P, dtype=torch.int32, device=occ.device)
+    valid = slot < total
+    src = torch.searchsorted(running, slot + 1)
+    src = torch.where(valid, src, 0)
+    ray = src // K
+    k = (src % K).to(torch.float32)
+    ts = torch.where(valid, _fma(k, _f32(dt_min), t0[ray]), 0.0)
+    ray_idx = torch.where(valid, ray, N)
+    deltas = torch.full((P,), dt_min, dtype=torch.float32, device=occ.device)
+    in_pool = torch.minimum(torch.clamp_min(total - offsets, 0), rm_counts)
+    return ts, deltas, ray_idx, valid, in_pool, offsets, total, rm_counts
+
+
+def march_rays_train_window(rays_o, rays_d, hits_t, noise, win_rows, *,
+                            scale: float, grid_size: int, max_samples: int,
+                            pool_size: int, chain_length: int) -> MarchResults:
+    """Windowed occupancy march of a train batch (single cascade, uniform
+    steps; ray_march.py:517-591): the chain from t1 + dt_min * noise, cut
+    into 8-step intervals whose bits come from one 64-byte window each,
+    then compacted into the pool.  Valid under `segment_march_dmax_ok`."""
+    N = rays_o.shape[0]
+    J = SEGMENT_J
+    K = -(-chain_length // J) * J
+    dt_min = SQRT3 / max_samples
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    hit = t1 >= 0
+    t0 = _fma(noise, _f32(dt_min), t1)
+    occ, ts = _occ_window_chain(rays_o, rays_d, t0, K // J, win_rows,
+                                scale=scale, grid_size=grid_size,
+                                dt_min=dt_min)
+    ts = ts.reshape(N, K)
+    in_range = hit[:, None] & (ts >= 0) & (ts < t2[:, None])
+    occ = occ.reshape(N, K) & in_range
+    del ts, in_range
+
+    kk1 = torch.arange(1, K + 1, dtype=torch.int32, device=occ.device)
+    per_ray_need = torch.where(occ, kk1, 0).amax(dim=1)
+    pool = _compact_to_pool(occ, t0, max_samples, pool_size, dt_min)
+    return MarchResults(*pool[:4], counts=pool[4], offsets=pool[5],
+                        total=pool[6], rm_counts=pool[7],
+                        chain_demand=per_ray_need.max(),
+                        chain_demand_q=q99(per_ray_need))

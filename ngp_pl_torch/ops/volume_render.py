@@ -1,6 +1,11 @@
-"""Incremental test-time compositing (counterpart of
-ngp_pl_tpu/ops/volume_render.py `composite_test_round`, reference
-models/csrc/volumerendering.cu:205-285)."""
+"""Volume compositing (counterpart of ngp_pl_tpu/ops/volume_render.py):
+the CSR train compositor over the flat sample pool (`composite_train`,
+reference models/csrc/volumerendering.cu:6-202) and the incremental
+test-time round (`composite_test_round`, volumerendering.cu:205-285).
+
+Both are plain PyTorch: the JAX package wrote no Pallas kernel here, and
+autograd of the train compositor gives the reference's hand-written
+backward, as JAX autodiff does."""
 from __future__ import annotations
 
 import torch
@@ -10,8 +15,43 @@ import torch
 # clamp changes no image while keeping the running sums finite.
 SD_CLAMP = 25.0
 # Segment optical depths are >= 0; the CSR training compositor clips its
-# differenced prefix sums here (kept for the training slice).
+# differenced prefix sums here (T floor e^-88, harmless).
 _EXCL_MAX = 88.0
+
+
+def segment_excl_cumsum(x, offsets, ray_idx):
+    """Exclusive cumsum within the contiguous segments of a flat pool
+    (volume_render.py:46-58).  x (P,) is 0 in invalid slots; offsets (N,)
+    are segment starts; ray_idx (P,) the owning segment (N when unused)."""
+    c = torch.cumsum(x, dim=0)
+    excl = c - x
+    # index_select, not x[idx]: its backward is an index_add_, where
+    # advanced indexing's sorts the indices on CUDA
+    seg_base = excl.index_select(0, torch.clamp(offsets, 0, x.shape[0] - 1))
+    ridx = torch.clamp(ray_idx, 0, offsets.shape[0] - 1)
+    return torch.clamp(excl - seg_base.index_select(0, ridx), 0.0, _EXCL_MAX)
+
+
+def composite_train(sigmas, rgbs, deltas, ts, ray_idx, valid, offsets,
+                    n_rays: int, T_threshold: float = 1e-4):
+    """Differentiable front-to-back compositing of the pool
+    (volume_render.py:61-97): per-ray opacity, depth and rgb, the
+    per-sample weights `ws` and the per-ray effective sample count
+    `vr_samples`.  Early termination is the mask T > T_threshold; the
+    segment sums go into N + 1 segments, the last (unused slots) dropped."""
+    sd = torch.where(valid, torch.clamp_max(sigmas * deltas, SD_CLAMP), 0.0)
+    excl = segment_excl_cumsum(sd, offsets, ray_idx)
+    T = torch.exp(-excl)
+    alpha = 1.0 - torch.exp(-sd)
+    keep = valid & (T > T_threshold)
+    w = torch.where(keep, alpha * T, 0.0)
+    seg = torch.where(valid, ray_idx, n_rays)
+    payload = torch.cat([w[:, None], (w * ts)[:, None], w[:, None] * rgbs,
+                         keep[:, None].to(w.dtype)], dim=1)      # (P, 6)
+    sums = torch.zeros((n_rays + 1, 6), dtype=w.dtype, device=w.device)
+    sums = sums.index_add(0, seg, payload)[:-1]
+    return {"opacity": sums[:, 0], "depth": sums[:, 1], "rgb": sums[:, 2:5],
+            "ws": w, "vr_samples": sums[:, 5].detach().to(torch.int32)}
 
 
 def composite_test_round(sigmas, rgbs, deltas, ts, sample_valid, opacity,

@@ -1,10 +1,16 @@
 """Slim checkpoints in the JAX package's npz key format (counterpart of
-ngp_pl_tpu/training/checkpoint.py:88-102).
+ngp_pl_tpu/training/checkpoint.py:88-102), and the train state carried
+across from and to the JAX package.
 
 A slim checkpoint holds the parameters and the uint8 occupancy grid.  Keys
 are the JAX pytree paths, e.g. `params['hash_table']`,
 `params['sigma_mlp'][0]`, `params['rgb_mlp'][2]` and `occ_grid`, so a
 checkpoint written by either package loads in the other.
+
+The train state is the JAX `TrainState`'s params and optax Adam state
+(`mu`, `nu` in the params' nesting, and the step `count`), as numpy arrays:
+`load_train_state` puts them into a port model and its `Adam`,
+`train_state_numpy` takes them out again.
 """
 from __future__ import annotations
 
@@ -72,6 +78,40 @@ def params_from_numpy(params: Dict, device="cpu") -> Dict:
     if isinstance(params, (list, tuple)):
         return [params_from_numpy(v, device) for v in params]
     return torch.tensor(np.array(params, dtype=np.float32), device=device)
+
+
+def _nested(params: Dict):
+    """Leaves of a {'hash_table', 'sigma_mlp': [...], 'rgb_mlp': [...]}
+    nest in the model's parameter order."""
+    yield params["hash_table"]
+    for name in ("sigma_mlp", "rgb_mlp"):
+        yield from params[name]
+
+
+def load_train_state(ngp, opt, params: Dict, mu: Dict, nu: Dict,
+                     count: int) -> None:
+    """JAX train state -> port: parameters into `ngp`, Adam moments and
+    step count into `opt` (an `ngp_pl_torch.training.train_step.Adam` over
+    the model's parameters in its `_slots` order)."""
+    ngp.load_params(params)
+    with torch.no_grad():
+        for dst, src in ((opt.mu, mu), (opt.nu, nu)):
+            for d, s in zip(dst, _nested(src)):
+                d.copy_(torch.as_tensor(np.asarray(s, np.float32)))
+    opt.count = int(count)
+
+
+def train_state_numpy(ngp, opt) -> Tuple[Dict, Dict, Dict, int]:
+    """Port -> JAX train state: (params, mu, nu) nests of numpy arrays in
+    the JAX layout and the step count."""
+    ns = len(ngp.sigma_mlp)
+
+    def nest(tensors):
+        ts = [t.detach().cpu().numpy() for t in tensors]
+        return {"hash_table": ts[0], "sigma_mlp": ts[1:1 + ns],
+                "rgb_mlp": ts[1 + ns:]}
+
+    return ngp.params_numpy(), nest(opt.mu), nest(opt.nu), opt.count
 
 
 def save_slim_checkpoint(path: str, *, params: Dict, occ_grid) -> None:

@@ -1,0 +1,313 @@
+"""NeRFSystem: the training orchestrator (counterpart of
+ngp_pl_tpu/training/system.py:48-473; reference train.py:53-294).
+
+A host loop around eager steps on the card: the occupancy grid is refreshed
+every 16 steps (every cell during the first 256 steps, then a quarter of
+them in turn), batches are drawn on the device from the resident ray store,
+and the CSR pool's size (`_pool_mult`) and the march's chain length follow
+the observed demand, read one interval late (`_consume_demand`).
+
+The port covers the CSR layout with the windowed march, the layout and
+march the JAX package trains the flagship scene with through grid warmup;
+its "auto" mode may move to the strided layout afterwards.  The strided and
+rounds layouts, "auto", and scenes that need the multi-cascade march raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ngp_pl_torch.config import MAX_SAMPLES, NGPConfig, RenderConfig, TrainConfig
+from ngp_pl_torch.datasets import dataset_dict
+from ngp_pl_torch.datasets.ray_utils import get_rays
+from ngp_pl_torch.device import resolve_device
+from ngp_pl_torch.models.ngp import NGP
+from ngp_pl_torch.models.occupancy import (
+    init_grid_state,
+    mark_invisible_cells,
+    update_density_grid,
+)
+from ngp_pl_torch.models.rendering import (
+    RoundRenderer,
+    compute_scene_chain_length,
+)
+from ngp_pl_torch.ops.ray_march import occupancy_windows, segment_march_dmax_ok
+from ngp_pl_torch.training.checkpoint import (
+    load_slim_checkpoint,
+    save_slim_checkpoint,
+)
+from ngp_pl_torch.training.metrics import psnr as psnr_fn
+from ngp_pl_torch.training.metrics import ssim as ssim_fn
+from ngp_pl_torch.training.train_step import (
+    Adam,
+    block_metrics,
+    cosine_epoch_schedule,
+    sample_batch,
+    train_step,
+)
+
+
+class NeRFSystem:
+    def __init__(self, tcfg: TrainConfig, train_dataset=None,
+                 test_dataset=None, device="cuda"):
+        if tcfg.train_layout != "csr":
+            raise NotImplementedError(
+                f"train_layout={tcfg.train_layout!r}: the port has the CSR "
+                "layout only; the strided and rounds layouts and 'auto' are "
+                "the next slice (ROADMAP)")
+        if tcfg.random_bg:
+            raise NotImplementedError(
+                "random_bg applies to exp-stepping scenes (scale > 0.5), a "
+                "later slice; the port's uniform-step scenes train on white, "
+                "as the JAX trainer's do")
+        self.dev = resolve_device(device)
+        self.tcfg = tcfg
+        self.cfg: NGPConfig = tcfg.ngp_config()
+        self.rcfg: RenderConfig = tcfg.render_config()
+        ds_cls = dataset_dict[tcfg.dataset_name]
+        self.train_dataset = train_dataset or ds_cls(
+            split="train", downsample=tcfg.downsample, device=self.dev)
+        self.test_dataset = test_dataset or ds_cls(
+            split="test", downsample=tcfg.downsample, device=self.dev)
+
+        if not (self.cfg.cascades == 1 and self.cfg.exp_step_factor == 0.0
+                and segment_march_dmax_ok(
+                    self.train_dataset.directions,
+                    grid_size=self.cfg.grid_size,
+                    max_samples=self.rcfg.max_samples,
+                    scale=self.cfg.scale)):
+            raise NotImplementedError(
+                "the port's train march is the single-cascade windowed march; "
+                "multi-cascade / exp-stepping scenes and wide-angle cameras "
+                "are a later slice")
+
+        self.ngp = NGP(self.cfg, seed=tcfg.seed, device=self.dev)
+        self.grid_state = init_grid_state(self.cfg, self.dev)
+        if tcfg.weight_path:
+            params, occ = load_slim_checkpoint(tcfg.weight_path)
+            self.ngp.load_params(params)
+            occ = torch.from_numpy(occ).to(self.dev)
+            self.grid_state.occ_grid = occ
+            self.grid_state.win_rows = occupancy_windows(occ)
+        self.optimizer = Adam(
+            [w for _, _, w in self.ngp._slots()],
+            cosine_epoch_schedule(tcfg.lr, tcfg.num_epochs,
+                                  tcfg.iters_per_epoch, tcfg.lr_final_div),
+            eps=tcfg.adam_eps)
+
+        self.poses = torch.from_numpy(self.train_dataset.poses).to(self.dev)
+        self.directions = torch.from_numpy(
+            self.train_dataset.directions).to(self.dev)
+        self.rays = self.train_dataset.rays.to(self.dev)
+        # threshold 0.01 * MAX_SAMPLES / sqrt(3) (reference train.py:160)
+        self.density_threshold = 0.01 * MAX_SAMPLES / math.sqrt(3.0)
+        self.erode = tcfg.dataset_name == "colmap"
+        # white, as the JAX trainer's uniform-step scenes (train_step.py:123)
+        self.bg = torch.ones(3, device=self.dev)
+        self.generator = torch.Generator(device=self.dev).manual_seed(
+            tcfg.seed)
+        self.history: list = []
+        self._host_step = 0
+
+        # demand controller (system.py:164-250), CSR branch
+        self._pool_buckets = (8, 16, 24, 32, 40, 48, 56, 64)
+        self._pool_mult = self.rcfg.train_pool_mult
+        self._pool_demand = 0.0
+        self.layout = "csr"
+        self._shrink_votes = 0
+        self.chain_full = compute_scene_chain_length(
+            self.train_dataset.poses, self.train_dataset.directions,
+            self.cfg.scale, self.rcfg.max_samples)
+        self._chain_buckets = sorted({
+            max(128, -(-int(self.chain_full * f) // 128) * 128)
+            for f in (0.25, 0.5, 0.75, 1.0)})
+        self.chain_length = self._chain_buckets[-1]
+        self._chain_demand = float(self.chain_length)
+        self._pending_demand = None
+
+    # -- setup ------------------------------------------------------------
+    def on_train_start(self):
+        """Mark camera-invisible cells once (reference train.py:154-157)."""
+        ds = self.train_dataset
+        self.grid_state = mark_invisible_cells(
+            self.grid_state, ds.K, ds.poses, cfg=self.cfg,
+            img_w=ds.img_wh[0], img_h=ds.img_wh[1])
+
+    # -- training ---------------------------------------------------------
+    def _refresh_grid(self, step_i: int):
+        n = self.tcfg.grid_update_interval
+        self.grid_state = update_density_grid(
+            self.ngp, self.grid_state, self.density_threshold,
+            warmup=step_i < self.tcfg.grid_warmup_steps, erode=self.erode,
+            phase=(step_i // n) % 4, generator=self.generator)
+
+    def _train_step(self) -> Dict[str, torch.Tensor]:
+        tcfg = self.tcfg
+        img, pix, target = sample_batch(self.rays, tcfg.batch_size,
+                                        tcfg.ray_sampling_strategy,
+                                        self.generator)
+        rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
+        noise = torch.rand(tcfg.batch_size, generator=self.generator,
+                           device=self.dev)
+        return train_step(self.ngp, self.optimizer, self.grid_state.win_rows,
+                          rays_o.contiguous(), rays_d.contiguous(), target,
+                          noise, self.bg, tcfg=tcfg, rcfg=self.rcfg,
+                          pool_mult=self._pool_mult,
+                          chain_length=self.chain_length)
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        """One step (system.py:281-315): a grid refresh first at every
+        interval boundary; demand consumed at the interval's end."""
+        step_i = self._host_step
+        n = self.tcfg.grid_update_interval
+        if step_i % n == 0:
+            self._refresh_grid(step_i)
+        metrics = self._train_step()
+        self._host_step = step_i + 1
+        if (step_i + 1) % n == 0:
+            self._consume_demand(metrics)
+        return metrics
+
+    def step_block(self) -> Dict[str, torch.Tensor]:
+        """One grid refresh and `grid_update_interval` steps
+        (system.py:445-473), queued without a host sync; the block's
+        metrics are the last step's except the demand (max over the
+        block), rm_samples (max) and the skip count (sum)."""
+        n = self.tcfg.grid_update_interval
+        step_i = self._host_step
+        if step_i % n:
+            raise ValueError("step_block must start block-aligned")
+        self._refresh_grid(step_i)
+        metrics = block_metrics([self._train_step() for _ in range(n)])
+        self._host_step = step_i + n
+        self._consume_demand(metrics)
+        return metrics
+
+    def _pick_bucket(self, want: float) -> int:
+        for m in self._pool_buckets:
+            if m >= want:
+                return m
+        return self._pool_buckets[-1]
+
+    def _consume_demand(self, metrics):
+        """Re-bucket pool and chain from the demand vector of the previous
+        interval (system.py:323-443, CSR branch): the vector is copied to
+        the host asynchronously and read one interval late, so the host
+        never waits for the block it just queued.  Pool growth applies at
+        once; a shrink needs two agreeing intervals."""
+        dv = torch.as_tensor(metrics["demand_vec"])
+        if dv.is_cuda:
+            host = torch.empty(dv.shape, dtype=dv.dtype, pin_memory=True)
+            host.copy_(dv, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            pending = (host, event)
+        else:
+            pending = (dv.clone(), None)
+        prev, self._pending_demand = self._pending_demand, pending
+        if prev is None:
+            return
+        if prev[1] is not None:
+            prev[1].synchronize()
+        (_, _, chain_q, _, _, _, _, _, rm_mean_pre) = (
+            float(v) for v in np.nan_to_num(
+                prev[0].numpy(), posinf=0.0, neginf=0.0))
+        # during grid warmup every chain step is occupied: hold the budget
+        if self._host_step <= self.tcfg.grid_warmup_steps:
+            return
+        # size from the pre-clip per-ray mean, headroom 1.15 + 2
+        want = rm_mean_pre * 1.15 + 2.0
+        self._pool_demand = max(0.8 * self._pool_demand, want)
+        new_mult = self._pick_bucket(self._pool_demand)
+        if new_mult >= self._pool_mult:
+            self._pool_mult = new_mult
+            self._shrink_votes = 0
+        else:
+            self._shrink_votes += 1
+            if self._shrink_votes >= 2:
+                self._pool_mult = new_mult
+                self._shrink_votes = 0
+        self._chain_demand = max(0.9 * self._chain_demand, chain_q * 1.2)
+        for c in self._chain_buckets:
+            if c >= self._chain_demand:
+                self.chain_length = c
+                break
+        else:
+            self.chain_length = self._chain_buckets[-1]
+
+    def fit(self, max_steps: Optional[int] = None,
+            log_every: Optional[int] = None, quiet: bool = False):
+        """Train `max_steps` steps (system.py:475-522): 16-step blocks when
+        the step counts allow, single steps otherwise.  Logs the JAX
+        trainer's line plus the skipped-step count."""
+        max_steps = max_steps or self.tcfg.max_steps
+        log_every = log_every or self.tcfg.log_every
+        self.on_train_start()
+        t0 = time.time()
+        nb = self.tcfg.grid_update_interval
+        skipped = torch.zeros((), dtype=torch.int32, device=self.dev)
+        if (self._host_step % nb == 0 and max_steps % nb == 0
+                and log_every % nb == 0):
+            for i in range(max_steps // nb):
+                metrics = self.step_block()
+                skipped = skipped + metrics["n_skipped"]
+                if ((i + 1) * nb) % log_every == 0 or i == 0:
+                    self._log_fit(metrics, (i + 1) * nb, t0, quiet, skipped)
+            return self.history
+        for i in range(max_steps):
+            metrics = self.step()
+            skipped = skipped + metrics["n_skipped"]
+            if (i + 1) % log_every == 0 or i == 0:
+                self._log_fit(metrics, i + 1, t0, quiet, skipped)
+        return self.history
+
+    def _log_fit(self, metrics, steps_done, t0, quiet, skipped):
+        m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+        m["step"] = self._host_step
+        m["skipped_total"] = int(skipped)
+        if self.dev.type == "cuda":          # a fenced time
+            torch.cuda.synchronize(self.dev)
+        m["seconds"] = time.time() - t0
+        m["rays_per_s"] = self.tcfg.batch_size * steps_done / m["seconds"]
+        m["pool_mult"] = self._pool_mult
+        m["chain_length"] = self.chain_length
+        self.history.append(m)
+        if not quiet:
+            print(f"step {m['step']:6d} loss {m['loss']:.4f} "
+                  f"psnr {m['psnr']:.2f} rm_s "
+                  f"{m['rm_samples'] / self.tcfg.batch_size:.1f} "
+                  f"{m['rays_per_s']:.0f} rays/s "
+                  f"skipped {m['skipped_total']}", flush=True)
+
+    # -- validation -------------------------------------------------------
+    @torch.no_grad()
+    def validate(self, max_images: Optional[int] = None) -> Dict[str, float]:
+        """PSNR/SSIM of the test views through the round renderer
+        (system.py:548-630, without image dumps)."""
+        ds = self.test_dataset
+        w, h = ds.img_wh
+        renderer = RoundRenderer(self.ngp, self.rcfg)
+        dirs = torch.from_numpy(ds.directions).to(self.dev)
+        n = len(ds.poses) if max_images is None else min(max_images,
+                                                         len(ds.poses))
+        psnrs, ssims = [], []
+        for idx in range(n):
+            item = ds.test_item(idx)
+            out = renderer.render_pose(
+                self.grid_state.occ_grid, dirs,
+                torch.from_numpy(item["pose"]).to(self.dev))
+            pred = out["rgb"].reshape(h, w, 3)
+            gt = item["rgb"].reshape(h, w, 3)
+            psnrs.append(float(psnr_fn(pred, gt)))
+            ssims.append(float(ssim_fn(pred, gt)))
+        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+
+    # -- checkpointing ----------------------------------------------------
+    def save_slim(self, path: str):
+        save_slim_checkpoint(path, params=self.ngp.params_numpy(),
+                             occ_grid=self.grid_state.occ_grid)

@@ -70,21 +70,34 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     from ngp_pl_torch.config import NGPConfig, TrainConfig
     from ngp_pl_torch.datasets.synthetic import SyntheticDataset
     from ngp_pl_torch.device import resolve_device
     from ngp_pl_torch.eval import evaluate
     from ngp_pl_torch.models.ngp import NGP
+    from ngp_pl_torch.train import main as train_main
+    from ngp_pl_torch.training.system import NeRFSystem
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
     cfg = NGPConfig(n_levels=2, n_features_per_level=4, log2_hashmap_size=8)
+    small = ["--n_levels", "4", "--log2_hashmap_size", "12", "--batch_size",
+             "256", "--downsample", "0.1875", "--num_epochs", "1",
+             "--iters_per_epoch", "16", "--max_images", "1"]
     for call in (lambda: evaluate(TrainConfig()), lambda: NGP(cfg),
-                 lambda: SyntheticDataset(), lambda: resolve_device()):
+                 lambda: SyntheticDataset(), lambda: resolve_device(),
+                 lambda: NeRFSystem(TrainConfig()),
+                 lambda: train_main(small)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
     NGP(cfg, device="cpu")
+    system, scores = train_main(small + ["--device", "cpu"])
+    assert system.optimizer.count == 16
+    assert np.isfinite(scores["psnr"]) and np.isfinite(scores["ssim"])
+    assert (tmp_path / "ckpts" / "synthetic" / "exp"
+            / "epoch=1_slim.npz").exists()
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -130,3 +143,48 @@ def test_cuda_kernels_match_plain():
     np.testing.assert_allclose(s_k.cpu().numpy(), s_p.cpu().numpy(),
                                rtol=1e-5)
     assert float((r_k - r_p).abs().max()) <= 4e-3
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_on_card():
+    """On the card: the table-gradient kernel, K8 and K6 build, launch,
+    count and agree with their plain versions (tolerances as chip_smoke.py
+    states them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from ngp_pl_torch.device import resolve_device
+    from ngp_pl_torch.ops import field_tail as ft
+    from ngp_pl_torch.ops import hash_encoding as he
+    from ngp_pl_torch.ops import scatter_rows as sr
+
+    resolve_device("cuda")
+    g = torch.Generator().manual_seed(1)
+    spec = he.make_grid_spec(4, 4, 12, 4, 2.0)
+    x = torch.rand((1000, 3), generator=g).cuda()
+    gr = torch.randn((1000, 64), generator=g).cuda()
+    w1 = (torch.randn((16, 64), generator=g) * 0.3).cuda()
+    n0 = he.hash_encode_bwd_cuda.launches
+    d_k = he.hash_encode_bwd(x, gr, w1, spec)
+    assert he.hash_encode_bwd_cuda.launches == n0 + 1
+    d_p = he.hash_encode_bwd_plain(x, gr, w1, spec)
+    assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
+
+    h1 = (torch.randn((1000, 64), generator=g) * 2.0).cuda()
+    sh = (torch.randn((1000, 16), generator=g) * 0.3).cuda()
+    g_sigma = (torch.randn((1000,), generator=g) * 1e-2).cuda()
+    g_rgb = torch.randn((1000, 3), generator=g).cuda()
+    ws = [(torch.randn(s, generator=g) * 0.3).cuda()
+          for s in ((64, 16), (32, 64), (64, 64), (64, 3))]
+    n0 = ft.field_tail_bwd_cuda.launches
+    got = ft.field_tail_bwd(h1, sh, g_sigma, g_rgb, *ws)
+    assert ft.field_tail_bwd_cuda.launches == n0 + 1
+    for a, b in zip(got, ft.field_tail_bwd_plain(h1, sh, g_sigma, g_rgb,
+                                                 *ws)):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+    idx = (torch.arange(1000, device="cuda") * 7) % 37
+    n0 = sr.scatter_rows_cuda.launches
+    out = sr.scatter_rows(h1, idx, 37)
+    assert sr.scatter_rows_cuda.launches == n0 + 1
+    ref = sr.scatter_rows_plain(h1, idx, 37)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
