@@ -10,14 +10,15 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            the paths: max error and tolerance, median time over CUDA
            events, the plain version's time and the least time the card
            could take (bytes over 3.35 TB/s or operations over peak rate);
-           K1 and K2+K5 at 262,144 random points, K7 at 1,048,576 samples,
+           K1 and K2+K5 at 262,144 random points of the flagship grid, K3
+           and K4 at 262,144 of the L16F2 grid, K7 at 1,048,576 samples,
            K8 at 262,144, K6 at 262,144 rows of 128 into 16,384 (also timed
            against Tensor.index_add_)
   slice    ngp_pl_torch.eval on the synthetic scene at 800x800 with the seeded
            flagship model (L=8, F=4, T=2^19, grid 128^3): occupancy grid from
            the train cameras plus one warmup refresh, two test views through
-           the round renderer, PSNR/SSIM, FPS, samples/ray, rounds; every
-           kernel's launch count must grow during this run
+           the round renderer, PSNR/SSIM, FPS, samples/ray, rounds; K1 and
+           K7 must launch during this run
   ckpt     slim checkpoint in the JAX key format, reloaded through the entry
            point: the re-render must be identical
   reference  a crop of rays rendered with the kernels on the card and with
@@ -27,7 +28,8 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
   train_reference  one train step of the seeded flagship model on
            bench.py's scene (8 views at 96x96) with the kernels on the card,
            against the CPU's plain path and against the plain versions on
-           the card: same pool, loss and gradients agree
+           the card: same pool, loss and gradients agree; beside them each
+           kernel alone, the others run as their plain versions
   train    NeRFSystem.fit of that model, batch 8192, 512 steps in 16-step
            blocks: loss finite and falling, skipped steps, rays/s over the
            last 8 blocks, pool and chain; K1, K7, K2+K5 and K8 must all
@@ -38,9 +40,16 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            samples/ray, rounds, PSNR
   profile  one more 16-step block under torch.profiler: K1, K7, K2+K5, K8,
            the PyTorch kernels around them and the device's idle share
-Then the card line, the kernels line and, last, the result line.  Without a
-CUDA device, or run outside the repository, it exits non-zero and prints no
-result.
+Then the same for the reference's own geometry, L16F2 (L=16, F=2, T=2^19,
+the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
+and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
+each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
+train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
+train_reference_l16f2 from the trained state on 2 batches,
+trained_render_l16f2 and a profiled block.
+Then the card line, the kernels line (all seven kernels, with their
+launches on each path) and, last, the result line.  Without a CUDA device,
+or run outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -60,18 +69,20 @@ BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core peak
 FP32_FLOPS = 67e12             # f32 outside the tensor cores
 
 # Tolerances of each kernel against its plain version, with the reason.
-# K1 rounds where the plain version does (bf16 corner weights, bf16 weighted
-# row values, bf16 w1); only the f32 summation order differs.
-K1_TOL = 1e-5                  # max |h1 - plain| / max |plain|
+# K1 and K3 round where the plain version does (bf16 weighted row values,
+# bf16 w1, and at F=4 bf16 corner weights); only the f32 summation order
+# differs.
+K1_TOL = 1e-5                  # max |h1 - plain| / max |plain|, also K3
 # K7 sums each f32 accumulator in another order than the plain matmuls, so
 # an activation can land on the other side of a bf16 rounding step: one
 # bf16 ulp (2^-8 relative) of one hidden unit moves rgb by ~1e-3.
 K7_TOL = 4e-3                  # max |rgb - plain| and max |log sigma - plain|
-# The table-gradient kernel (K2 + K5) rounds where its plain version does
-# (bf16 g and w1, bf16 corner weights, bf16 products); the f32 atomics add
-# in another order, and a feature gradient that differs in its last bit can
-# round one product to the other bf16 neighbour (2^-8 of one term).
-K2_TOL = 1e-5                  # max |d_table - plain| / max |plain|
+# The table-gradient kernels (K2 + K5, K4) round where their plain version
+# does (bf16 g and w1, bf16 products, and at F=4 bf16 corner weights); the
+# f32 atomics add in another order, and a feature gradient that differs in
+# its last bit can round one product to the other bf16 neighbour (2^-8 of
+# one term).
+K2_TOL = 1e-5                  # max |d_table - plain| / max |plain|, also K4
 # K8: as K7, an activation or gradient can round to the other bf16
 # neighbour; each output is held to 1e-3 of its largest magnitude (measured
 # at most 8.5e-5 on the H100).
@@ -91,7 +102,15 @@ K6_TOL = 1e-5                  # f32 atomics in another order, relative
 STEP_TOL = (1e-5, 2e-3)
 TRAINED_CPU_TOL = (5e-4, 3e-2)
 TRAINED_KERNEL_TOL = (1e-4, 5e-3)
+# L16F2 from the seeded state: K8 alone (K3, K4 and K7 run as their plain
+# versions) moves the table gradient by 3.7e-3 of its max against the plain
+# versions on the card, as much as all four kernels do, while K3 alone and
+# K4 alone move it by 1.9e-4 each (H100, `alone_vs_plain_on_card`;
+# PERF.md).  So the whole step is held to 1e-2 there (2.7x that reading)
+# and K3 and K4, each alone, to STEP_TOL.
+STEP_TOL_L16F2 = (1e-5, 1e-2)
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
+TRAINED_BATCHES_L16F2 = (7, 8)
 TRAIN_STEPS = 512              # 32 blocks: 16 warmup refreshes, then phases
 
 
@@ -133,32 +152,36 @@ def bound(nbytes: float, tensor_flops: float, fp32_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_k1(torch, ngp, spec):
+def check_fwd(torch, ngp, key):
+    """K1 (F=4) or K3 (F=2), by `key`, at 262,144 random points of the
+    model's grid, reading the table the encode reads."""
     from ngp_pl_torch.ops import hash_encoding as he
 
+    spec = ngp.spec
+    wrapper = _counters()[key]
     N = 262144
     g = torch.Generator().manual_seed(1)
     x = torch.rand((N, 3), generator=g).cuda()
-    t16 = ngp.table16()
+    table = ngp.encode_table()
     w1 = ngp.sigma_mlp[0].detach()
     LF = spec.n_levels * spec.n_features
     feats_k = torch.empty((N, LF), device="cuda")
     feats_p = torch.empty((N, LF), device="cuda")
-    h_k = he.hash_encode_fwd_cuda(x, t16, w1, spec, feats_k)
+    h_k = wrapper(x, table, w1, spec, feats_k)
     torch.cuda.synchronize()
-    h_p = he.hash_encode_fwd_plain(x, t16, w1, spec, feats_p)
+    h_p = he.hash_encode_fwd_plain(x, table, w1, spec, feats_p)
     scale = float(h_p.abs().max())
     err = float((h_k - h_p).abs().max())
     feat_err = float((feats_k - feats_p).abs().max())
     if not (err <= K1_TOL * scale and feat_err <= K1_TOL * float(
             feats_p.abs().max())):
-        raise AssertionError(f"K1 disagrees: {err} (scale {scale}), "
+        raise AssertionError(f"{key} disagrees: {err} (scale {scale}), "
                              f"feats {feat_err}")
-    ms = time_ms(lambda: he.hash_encode_fwd_cuda(x, t16, w1, spec))
-    plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, t16, w1, spec))
+    ms = time_ms(lambda: wrapper(x, table, w1, spec))
+    plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, table, w1, spec))
     # bytes: x in, h1 out, w1, and the table points these samples read:
-    # each distinct (row, corner point) once, F halves each (a row holds
-    # 27 points; its 20 pad lanes are never read)
+    # each distinct (row, corner point) once, F values of the table's type
+    # each (a row holds 27 points; its pad lanes are never read)
     slot, local, _ = he.slots_local_frac_lm(x, spec)
     corner = torch.tensor([[(c >> 2) & 1, (c >> 1) & 1, c & 1]
                            for c in range(8)], device=x.device)
@@ -168,7 +191,8 @@ def check_k1(torch, ngp, spec):
                               + pt).numel())
     rows = int(torch.unique(slot).numel())
     del pts, pt
-    nbytes = (N * 12 + N * 64 * 4 + points * spec.n_features * 2
+    nbytes = (N * 12 + N * 64 * 4
+              + points * spec.n_features * table.element_size()
               + w1.numel() * 4)
     contraction = 2.0 * N * LF * 64
     interp = N * spec.n_levels * (8 * spec.n_features * 2 + 8 * 2)
@@ -178,6 +202,7 @@ def check_k1(torch, ngp, spec):
                 bound_ms=bound_ms,
                 bound_by=bound_by, n=N, table_rows_touched=rows,
                 table_points_touched=points,
+                table_bytes=table.numel() * table.element_size(),
                 bytes=nbytes, flops=contraction + interp)
 
 
@@ -210,33 +235,37 @@ def check_k7(torch, ngp):
                 flops=flops)
 
 
-def check_k2(torch, ngp, spec):
-    """The table-gradient kernel (K2 fused with the K5 scatter) at 262,144
-    random points of the flagship grid."""
+def check_bwd(torch, ngp, key):
+    """The table-gradient kernel, K2 fused with the K5 scatter (F=4) or K4
+    fused with the per-level scatter-add (F=2), by `key`, at 262,144
+    random points of the model's grid."""
     from ngp_pl_torch.ops import hash_encoding as he
 
+    spec = ngp.spec
+    wrapper = _counters()[key]
     N = 262144
     g = torch.Generator().manual_seed(3)
     x = torch.rand((N, 3), generator=g).cuda()
     gr = (torch.randn((N, 64), generator=g) * 1e-3).cuda()
     w1 = ngp.sigma_mlp[0].detach()
-    d_k = he.hash_encode_bwd_cuda(x, gr, w1, spec)
+    d_k = wrapper(x, gr, w1, spec)
     torch.cuda.synchronize()
     d_p = he.hash_encode_bwd_plain(x, gr, w1, spec)
     scale = float(d_p.abs().max())
     err = float((d_k - d_p).abs().max())
     if not err <= K2_TOL * scale:
-        raise AssertionError(f"K2+K5 disagrees: {err} (scale {scale})")
+        raise AssertionError(f"{key} disagrees: {err} (scale {scale})")
     del d_k, d_p
-    ms = time_ms(lambda: he.hash_encode_bwd_cuda(x, gr, w1, spec))
+    ms = time_ms(lambda: wrapper(x, gr, w1, spec))
     plain_ms = time_ms(lambda: he.hash_encode_bwd_plain(x, gr, w1, spec))
     # bytes: x and g in, w1, the f32 table gradient out (every row)
-    nbytes = N * 12 + N * 64 * 4 + w1.numel() * 4 + spec.total_rows * 128 * 4
+    nbytes = (N * 12 + N * 64 * 4 + w1.numel() * 4
+              + spec.total_rows * spec.row_width * 4)
     LF = spec.n_levels * spec.n_features
     contraction = 2.0 * N * LF * 64              # d_wr: bf16 operands
-    # per sample and level: 8 corner weights (2 products), 32 products and
-    # the 32 additions into the table
-    rest = N * spec.n_levels * (8 * 2 + 32 * 2)
+    # per sample and level: 8 corner weights (2 products), 8 x F products
+    # and the 8 x F additions into the table
+    rest = N * spec.n_levels * (8 * 2 + 8 * spec.n_features * 2)
     bound_ms, bound_by = bound(nbytes, contraction, rest)
     return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K2_TOL,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -413,18 +442,35 @@ def _counters():
 
     return {"K1": he.hash_encode_fwd_cuda, "K7": ft.field_tail_cuda,
             "K2+K5": he.hash_encode_bwd_cuda, "K8": ft.field_tail_bwd_cuda,
-            "K6": sr.scatter_rows_cuda}
+            "K6": sr.scatter_rows_cuda, "K3": he.hash_encode_fwd_f2_cuda,
+            "K4": he.hash_encode_bwd_f2_cuda}
+
+
+def path_kernels(cfg):
+    """The hand kernels a train step of this model launches: the encode
+    forward and its table gradient by F, then the field tail and its
+    backward.  A render launches the first and the third."""
+    if cfg.n_features_per_level == 2:
+        return ("K3", "K4", "K7", "K8")
+    return ("K1", "K2+K5", "K7", "K8")
+
+
+def train_config(**kw):
+    """The flagship's train configuration on bench.py's scene (batch
+    8192, the 30-epoch cosine); `kw` changes the geometry."""
+    from ngp_pl_torch.config import TrainConfig
+
+    return TrainConfig(dataset_name="synthetic", batch_size=8192,
+                       num_epochs=30, **kw)
 
 
 def flagship_system(torch, dev="cuda", tcfg=None, img_size=96, n_train=8):
-    """A NeRFSystem of the flagship model on bench.py's scene (8 views at
-    96x96, batch 8192), seeded."""
-    from ngp_pl_torch.config import TrainConfig
+    """A NeRFSystem of the flagship model (or of `tcfg`) on bench.py's scene
+    (8 views at 96x96, batch 8192), seeded."""
     from ngp_pl_torch.datasets.synthetic import SyntheticDataset
     from ngp_pl_torch.training.system import NeRFSystem
 
-    tcfg = tcfg or TrainConfig(dataset_name="synthetic", batch_size=8192,
-                               num_epochs=30)
+    tcfg = tcfg or train_config()
     return NeRFSystem(
         tcfg, device=dev,
         train_dataset=SyntheticDataset(split="train", img_size=img_size,
@@ -454,7 +500,7 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
         raise AssertionError(f"loss did not fall: {first['loss']} -> "
                              f"{last['loss']}")
     if torch.device(dev).type == "cuda" and not all(
-            launches[k] > 0 for k in ("K1", "K7", "K2+K5", "K8")):
+            launches[k] > 0 for k in path_kernels(system.cfg)):
         raise AssertionError(f"a kernel of the train path did not launch: "
                              f"{launches}")
     tail = [h for h in hist if h["step"] >= steps - 128]
@@ -510,8 +556,10 @@ def plain_on_card(*keys):
     from ngp_pl_torch.ops import hash_encoding as he
 
     swaps = {"K1": (he, "hash_encode_fwd_cuda", he.hash_encode_fwd_plain),
+             "K3": (he, "hash_encode_fwd_f2_cuda", he.hash_encode_fwd_plain),
              "K7": (ft, "field_tail_cuda", ft.field_tail_plain),
              "K2+K5": (he, "hash_encode_bwd_cuda", he.hash_encode_bwd_plain),
+             "K4": (he, "hash_encode_bwd_f2_cuda", he.hash_encode_bwd_plain),
              "K8": (ft, "field_tail_bwd_cuda", ft.field_tail_bwd_plain)}
     saved = [(mod, attr, getattr(mod, attr))
              for mod, attr, _ in (swaps[k] for k in keys)]
@@ -561,7 +609,7 @@ def _step_err(torch, names, got, ref):
 
 
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
-                    n_rays=2048):
+                    n_rays=2048, alone=(), alone_tol=None):
     """One train step's loss and gradients from the system's state on the
     card (kernels), against the same step on the CPU (plain versions) and
     on the card with every kernel replaced by its plain version; same batch,
@@ -571,7 +619,11 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     own PyTorch ops.  Two witnesses, the card's step with K7 alone and with
     every kernel replaced by its plain version, show how far the card's
     summation order moves the step against the CPU with no kernel of ours
-    involved.  `cpu_tol` and `card_tol` are (loss, gradient) limits."""
+    involved.  Each kernel of the path is also run alone, the others as
+    their plain versions, against the all-plain step on the card
+    (`alone_vs_plain_on_card`), which tells the kernels' shares apart; the
+    kernels named in `alone` are held to `alone_tol` there.  `cpu_tol`,
+    `card_tol` and `alone_tol` are (loss, gradient) limits."""
     from ngp_pl_torch.datasets.ray_utils import get_rays
     from ngp_pl_torch.models.ngp import NGP
 
@@ -600,15 +652,27 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
         with plain_on_card("K7"):
             k7_plain = _train_step_on(torch, system, system.ngp, system.dev,
                                       batch)
-        with plain_on_card("K1", "K7", "K2+K5", "K8"):
+        path = path_kernels(system.cfg)
+        with plain_on_card(*path):
             plain = _train_step_on(torch, system, system.ngp, system.dev,
                                    batch)
         vs_cpu = _step_err(torch, names, card, ref)
         vs_card = _step_err(torch, names, card, plain)
         brief = ("loss_rel_err", "grad_rel_err_max", "grad_l2_err_max")
+        vs_alone = {}
+        for key in path:
+            with plain_on_card(*(k for k in path if k != key)):
+                one = _train_step_on(torch, system, system.ngp, system.dev,
+                                     batch)
+            vs_alone[key] = {k: v for k, v in _step_err(
+                torch, names, one, plain).items() if k in brief + (
+                    "pool_identical",)}
+            if key in alone:
+                failed |= not within(vs_alone[key], alone_tol)
         out = dict(seed=seed, samples=card["samples"],
                    loss_card=card["loss"], loss_cpu=ref["loss"],
                    vs_cpu=vs_cpu, vs_plain_on_card=vs_card,
+                   alone_vs_plain_on_card=vs_alone,
                    witness_K7_plain_vs_cpu={
                        k: v for k, v in _step_err(torch, names, k7_plain,
                                                   ref).items() if k in brief},
@@ -626,7 +690,12 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
 
     out = dict(rays=n_rays, pool_mult=system._pool_mult,
                chain_length=system.chain_length, cpu_tol=cpu_tol,
-               card_tol=card_tol,
+               card_tol=card_tol, alone=list(alone), alone_tol=alone_tol,
+               alone_vs_plain_on_card_max={
+                   key: [max(b["alone_vs_plain_on_card"][key][m]
+                             for b in batches)
+                         for m in ("loss_rel_err", "grad_rel_err_max")]
+                   for key in batches[0]["alone_vs_plain_on_card"]},
                vs_cpu_max=[worst("vs_cpu", "loss_rel_err"),
                            worst("vs_cpu", "grad_rel_err_max")],
                vs_plain_on_card_max=[
@@ -677,11 +746,14 @@ def trained_render(torch, system, downsample=6.25):
 
 
 def profile_block(torch, system, block_ms):
-    """One more 16-step block under torch.profiler: device time of K1, K7,
-    K2+K5 and K8, the PyTorch kernels around them, and the device's idle
-    share against the unprofiled block time of the `train` phase."""
+    """One more 16-step block under torch.profiler: device time of the
+    path's four hand kernels, the PyTorch kernels around them, and the
+    device's idle share against the unprofiled block time of the `train`
+    phase.  A path runs one instance of each kernel template, so the
+    kernel's name tells which of them ran."""
     from torch.profiler import ProfilerActivity, profile
 
+    fwd, bwd, tail, tail_bwd = path_kernels(system.cfg)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -692,17 +764,102 @@ def profile_block(torch, system, block_ms):
     kernels = _device_kernels(prof)
     busy = sum(k[0] for k in kernels)
     parts = {name: sum(k[0] for k in kernels if any(s in k[2] for s in subs))
-             for name, subs in (("K1", ("hash_encode_fwd_kernel",)),
-                                ("K7", ("field_tail_fwd_kernel",)),
-                                ("K2+K5", ("hash_encode_bwd_kernel",)),
-                                ("K8", ("field_tail_bwd_kernel",
-                                        "field_tail_bwd_reduce")))}
+             for name, subs in ((fwd, ("hash_encode_fwd_kernel",)),
+                                (tail, ("field_tail_fwd_kernel",)),
+                                (bwd, ("hash_encode_bwd_kernel",)),
+                                (tail_bwd, ("field_tail_bwd_kernel",
+                                            "field_tail_bwd_reduce")))}
     return dict(block_ms_unprofiled=block_ms, block_ms_profiled=wall * 1e3,
                 device_busy_ms=busy, idle_share=1.0 - busy / block_ms,
                 kernels_ms=parts, other_kernels_ms=busy - sum(parts.values()),
                 launches_device=sum(k[1] for k in kernels),
                 top=[{"ms": ms, "count": n, "name": name[:90]}
                      for ms, n, name in kernels[:16]])
+
+
+def render_slice(torch, tcfg, views):
+    """`evaluate` of the seeded model at 800x800: `views` test views, the
+    counts from 0 just before, read just after; the path's encode kernel
+    and K7 must launch."""
+    from ngp_pl_torch.eval import evaluate
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = evaluate(tcfg, device="cuda", max_images=views)
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for img, opa in zip(res.images, res.opacities):
+        if img.shape != (800, 800, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError("rendered image not finite (800, 800, 3)")
+        if not (bool(torch.isfinite(opa).all()) and float(opa.min()) >= 0.0
+                and float(opa.max()) <= 1.0 + 1e-6):
+            raise AssertionError("opacity outside [0, 1]")
+    fwd, _, tail, _ = path_kernels(tcfg.ngp_config())
+    if not (launches[fwd] > 0 and launches[tail] > 0):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return res, {"views": len(res.images), "width": 800, "height": 800,
+                 "fps": res.fps, "samples_per_ray": res.samples_per_ray,
+                 "rounds_per_frame": res.rounds_per_frame, "psnr": res.psnr,
+                 "ssim": res.ssim, "launches": launches, "seconds": seconds,
+                 "note": "seeded init weights: rays do not terminate early, "
+                 "so this is the march's worst case"}
+
+
+def ckpt_roundtrip(torch, res, tcfg):
+    """Slim checkpoint of `res`'s model and grid, reloaded through the eval
+    entry point: the re-render of view 0 must be identical."""
+    from ngp_pl_torch import _build
+    from ngp_pl_torch.eval import evaluate
+    from ngp_pl_torch.training.checkpoint import save_slim_checkpoint
+
+    build_dir = _build.BUILD_DIR.parent
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "slim.npz")
+        save_slim_checkpoint(path, params=res.ngp.params_numpy(),
+                             occ_grid=res.occ_grid)
+        res2 = evaluate(tcfg.replace(weight_path=path), device="cuda",
+                        max_images=1)
+    same = bool(torch.equal(res.images[0], res2.images[0]))
+    if not same:
+        raise AssertionError("re-render from the slim checkpoint differs")
+    return {"identical": same,
+            "hash_table": list(res.ngp.hash_table.shape)}
+
+
+def train_path(torch, tcfg, card, suffix, trained_batches,
+               seeded_tol=STEP_TOL, alone=()):
+    """The train path of one geometry: the seeded step against the CPU and
+    the plain versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
+    from 0 just before, read just after), the trained step on
+    `trained_batches`, the trained field's 800x800 render and a profiled
+    block.  The kernels named in `alone` are held, each alone, to STEP_TOL
+    (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
+    on the card.  Returns the fit's record."""
+    system = flagship_system(torch, tcfg=tcfg)   # seeded, first refresh
+    system.on_train_start()
+    system._refresh_grid(0)
+    log({"phase": "train_reference" + suffix, "state": "seeded",
+         **train_reference(torch, system, seeded_tol, seeded_tol,
+                           alone=alone, alone_tol=STEP_TOL)})
+    del system
+    torch.cuda.empty_cache()
+    system = flagship_system(torch, tcfg=tcfg)
+    train = train_fit(torch, system)
+    log({"phase": "train" + suffix, "card": card, **train})
+    log({"phase": "train_reference" + suffix, "state": "trained",
+         **train_reference(torch, system, TRAINED_CPU_TOL,
+                           TRAINED_KERNEL_TOL, seeds=trained_batches,
+                           alone=alone, alone_tol=TRAINED_KERNEL_TOL)})
+    log({"phase": "trained_render" + suffix, "card": card,
+         **trained_render(torch, system)})
+    log({"phase": "profile", "of": "train_block" + suffix, "card": card,
+         **profile_block(torch, system, train["block_ms"])})
+    del system
+    torch.cuda.empty_cache()
+    return train
 
 
 def main() -> int:
@@ -713,11 +870,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from ngp_pl_torch import _build
-    from ngp_pl_torch.config import TrainConfig
     from ngp_pl_torch.device import resolve_device
-    from ngp_pl_torch.eval import evaluate
     from ngp_pl_torch.models.ngp import NGP
-    from ngp_pl_torch.training.checkpoint import save_slim_checkpoint
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -737,89 +891,71 @@ def main() -> int:
                    for k in _build.KERNELS
                    if (_build.BUILD_DIR / f"{k}.log").exists()}})
 
-    tcfg = TrainConfig(dataset_name="synthetic", downsample=6.25)
-    model = NGP(tcfg.ngp_config(), seed=tcfg.seed, device="cuda")
+    # the two geometries: the flagship L8F4 and the reference's L16F2
+    tcfgs = {"flagship": train_config(downsample=6.25),
+             "l16f2": train_config(downsample=6.25, n_levels=16,
+                                   n_features=2)}
     checks = {}
-    for name, fn in (("K1", lambda: check_k1(torch, model, model.spec)),
-                     ("K7", lambda: check_k7(torch, model)),
-                     ("K2+K5", lambda: check_k2(torch, model, model.spec)),
-                     ("K8", lambda: check_k8(torch, model)),
-                     ("K6", lambda: check_k6(torch))):
-        checks[name] = fn()
-        log({"phase": "kernels", "kernel": name, **checks[name]})
-        torch.cuda.empty_cache()
-    del model
+    for path, kernel_checks in (
+            ("flagship", (("K1", lambda m: check_fwd(torch, m, "K1")),
+                          ("K7", lambda m: check_k7(torch, m)),
+                          ("K2+K5", lambda m: check_bwd(torch, m, "K2+K5")),
+                          ("K8", lambda m: check_k8(torch, m)),
+                          ("K6", lambda m: check_k6(torch)))),
+            ("l16f2", (("K3", lambda m: check_fwd(torch, m, "K3")),
+                       ("K4", lambda m: check_bwd(torch, m, "K4"))))):
+        tcfg = tcfgs[path]
+        model = NGP(tcfg.ngp_config(), seed=tcfg.seed, device="cuda")
+        for key, check in kernel_checks:
+            checks[key] = check(model)
+            log({"phase": "kernels", "kernel": key, "geometry": path,
+                 **checks[key]})
+            torch.cuda.empty_cache()
+        del model
 
     # the render path: counts from 0 just before, read just after
-    counters = _counters()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    res = evaluate(tcfg, device="cuda", max_images=2)
-    slice_s = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    for img, opa in zip(res.images, res.opacities):
-        if img.shape != (800, 800, 3) or not bool(torch.isfinite(img).all()):
-            raise AssertionError("rendered image not finite (800, 800, 3)")
-        if not (bool(torch.isfinite(opa).all()) and float(opa.min()) >= 0.0
-                and float(opa.max()) <= 1.0 + 1e-6):
-            raise AssertionError("opacity outside [0, 1]")
-    if not (launches["K1"] > 0 and launches["K7"] > 0):
-        raise AssertionError(f"a kernel was not launched: {launches}")
-    log({"phase": "slice", "views": len(res.images), "width": 800,
-         "height": 800, "fps": res.fps, "samples_per_ray": res.samples_per_ray,
-         "rounds_per_frame": res.rounds_per_frame, "psnr": res.psnr,
-         "ssim": res.ssim, "launches": launches, "seconds": slice_s,
-         "card": card, "note": "seeded init weights: rays do not terminate "
-         "early, so this is the march's worst case"})
-
-    build_dir = _build.BUILD_DIR.parent
-    build_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        path = os.path.join(tmp, "slim.npz")
-        save_slim_checkpoint(path, params=res.ngp.params_numpy(),
-                             occ_grid=res.occ_grid)
-        res2 = evaluate(tcfg.replace(weight_path=path), device="cuda",
-                        max_images=1)
-    same = bool(torch.equal(res.images[0], res2.images[0]))
-    if not same:
-        raise AssertionError("re-render from the slim checkpoint differs")
-    log({"phase": "ckpt", "identical": same})
-
+    tcfg = tcfgs["flagship"]
+    launches = {}
+    res, out = render_slice(torch, tcfg, views=2)
+    launches["render"] = out["launches"]
+    log({"phase": "slice", "card": card, **out})
+    log({"phase": "ckpt", **ckpt_roundtrip(torch, res, tcfg)})
     log({"phase": "reference", **reference_crop(torch, res, tcfg)})
     log({"phase": "profile", "of": "frame", "card": card,
          **profile_frame(torch, res, tcfg)})
-    del res, res2
-    torch.cuda.empty_cache()
-
-    system = flagship_system(torch)          # seeded, first grid refresh
-    system.on_train_start()
-    system._refresh_grid(0)
-    log({"phase": "train_reference", "state": "seeded",
-         **train_reference(torch, system, STEP_TOL, STEP_TOL)})
-    del system
+    del res
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
-    system = flagship_system(torch)
-    train = train_fit(torch, system)
-    log({"phase": "train", "card": card, **train})
-    log({"phase": "train_reference", "state": "trained",
-         **train_reference(torch, system, TRAINED_CPU_TOL,
-                           TRAINED_KERNEL_TOL, seeds=TRAINED_BATCHES)})
-    log({"phase": "trained_render", "card": card,
-         **trained_render(torch, system)})
-    log({"phase": "profile", "of": "train_block", "card": card,
-         **profile_block(torch, system, train["block_ms"])})
+    launches["train"] = train_path(torch, train_config(), card, "",
+                                   TRAINED_BATCHES)["launches"]
+
+    # the L16F2 render and train paths, counted the same way
+    tcfg = tcfgs["l16f2"]
+    res, out = render_slice(torch, tcfg, views=1)
+    launches["render_l16f2"] = out["launches"]
+    log({"phase": "slice_l16f2", "card": card, **out})
+    log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
+    del res
+    torch.cuda.empty_cache()
+    launches["train_l16f2"] = train_path(
+        torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
+        TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
+        alone=("K3", "K4"))["launches"]
 
     no_library = "no single PyTorch call computes this function"
     rows = (("hash_encode_fwd (K1)", "K1", "hash_encode_fwd.cu",
              "ngp_pl_tpu/ops/hash_encoding_pallas.py:338"),
+            ("hash_encode_fwd_f2 (K3)", "K3", "hash_encode_fwd.cu",
+             "ngp_pl_tpu/ops/hash_encoding_pallas.py:370"),
             ("field_tail_fwd (K7)", "K7", "field_tail_fwd.cu",
              "ngp_pl_tpu/ops/field_pallas.py:170"),
             ("hash_encode_bwd (K2 fused with K5)", "K2+K5",
              "hash_encode_bwd.cu",
              "ngp_pl_tpu/ops/hash_encoding_pallas.py:413, "
              "ngp_pl_tpu/ops/scatter_accum.py:124"),
+            ("hash_encode_bwd_f2 (K4 fused with the scatter-add)", "K4",
+             "hash_encode_bwd.cu",
+             "ngp_pl_tpu/ops/hash_encoding_pallas.py:428"),
             ("field_tail_bwd (K8)", "K8", "field_tail_bwd.cu",
              "ngp_pl_tpu/ops/field_pallas.py:197"),
             ("scatter_rows (K6)", "K6", "scatter_rows.cu",
@@ -827,10 +963,14 @@ def main() -> int:
     entries = []
     for name, key, src, replaces in rows:
         k = checks[key]
+        # a kernel's own paths: the L16F2 ones for K3 and K4, the
+        # flagship's for the others
+        own = "_l16f2" if key in ("K3", "K4") else ""
         entries.append({
             "name": name, "route": "cuda", "source": f"ngp_pl_torch/csrc/{src}",
-            "replaces": replaces, "launches": train["launches"][key],
-            "launches_render": launches[key],
+            "replaces": replaces, "launches": launches["train" + own][key],
+            "launches_render": launches["render" + own][key],
+            "launches_by_path": {p: v[key] for p, v in launches.items()},
             "max_abs_err": k["max_abs_err"],
             # K7 is held to an absolute limit, the others to a limit
             # relative to the largest magnitude of each output

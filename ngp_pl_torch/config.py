@@ -78,15 +78,17 @@ class TrainConfig:
     defaults (ngp_pl_tpu/config.py:101-176).
 
     Defaults are the flagship model: scale 0.5 (one cascade, uniform steps)
-    and the L=8, F=4, T=2^19 brick table.  The port's field covers F=4 and
-    the Sigmoid head only, so F and the HDR switch are not flags yet.  The
-    train layout defaults to "csr", the one layout the port has; the JAX
+    and the L=8, F=4, T=2^19 brick table; `--n_levels 16 --n_features 2`
+    is the reference's own L16F2 geometry.  The port's field covers the
+    Sigmoid head only, so the HDR switch is not a flag yet.  The train
+    layout defaults to "csr", the one layout the port has; the JAX
     package's "auto" may switch to the strided layout after grid warmup."""
 
     dataset_name: str = "synthetic"
     downsample: float = 1.0
     scale: float = 0.5
     n_levels: int = 8
+    n_features: int = 4                        # per level, F in {2, 4}
     log2_hashmap_size: int = 19
     # loss (opt.py:24-29, losses.py:42-45)
     opacity_loss_w: float = 1e-3
@@ -117,7 +119,7 @@ class TrainConfig:
         return NGPConfig(
             scale=self.scale,
             n_levels=self.n_levels,
-            n_features_per_level=4,
+            n_features_per_level=self.n_features,
             log2_hashmap_size=self.log2_hashmap_size,
         )
 
@@ -135,7 +137,11 @@ def add_eval_args(parser) -> None:
                         choices=["synthetic"])
     parser.add_argument("--downsample", type=float, default=d.downsample)
     parser.add_argument("--scale", type=float, default=d.scale)
-    parser.add_argument("--n_levels", type=int, default=d.n_levels)
+    parser.add_argument("--n_levels", type=int, default=d.n_levels,
+                        help="hash-encoding levels L (reference: 16)")
+    parser.add_argument("--n_features", type=int, default=d.n_features,
+                        choices=[2, 4],
+                        help="features per level F (reference: 2)")
     parser.add_argument("--log2_hashmap_size", type=int,
                         default=d.log2_hashmap_size)
     parser.add_argument("--weight_path", type=str, default=None)

@@ -5,16 +5,16 @@ Parameters keep the JAX package's names and layouts, so one set of weights
 runs in both: `hash_table` (rows, W), `sigma_mlp` [(L*F, 64), (64, 16)],
 `rgb_mlp` [(32, 64), (64, 64), (64, 3)]; the MLPs are bias-free.
 
-`density` is the fused hash encode + first layer (K1) followed by the
-second sigma layer as a plain matmul whose bf16 output rounding matches the
-JAX package's `_mlp_apply`; it feeds the occupancy grid and takes no
-gradient.  `forward` is K1 followed by the fused field tail (K7); when
-autograd records it, it is differentiable through `hash_encode_mlp` (K1
-forward, the table-gradient kernel backward) and `field_tail_fn` (K7
-forward, K8 backward), with gradients to the f32 table and the MLP weights
-and none to positions or directions (`need_x_grad=False`).  Only the
-Sigmoid head of the reference geometry is covered; other heads raise until
-a later slice.
+`density` is the fused hash encode + first layer (K1 at F=4, K3 at F=2)
+followed by the second sigma layer as a plain matmul whose bf16 output
+rounding matches the JAX package's `_mlp_apply`; it feeds the occupancy grid
+and takes no gradient.  `forward` is the encode followed by the fused field
+tail (K7); when autograd records it, it is differentiable through
+`hash_encode_mlp` (K1 or K3 forward, the table-gradient kernel K2+K5 or K4
+backward) and `field_tail_fn` (K7 forward, K8 backward), with gradients to
+the f32 table and the MLP weights and none to positions or directions
+(`need_x_grad=False`).  Only the Sigmoid head of the reference geometry is
+covered; other heads raise until a later slice.
 """
 from __future__ import annotations
 
@@ -34,11 +34,11 @@ from ngp_pl_torch.ops.field_tail import (
 from ngp_pl_torch.ops.hash_encoding import (
     HashGridSpec,
     _bf,
+    encode_table,
     hash_encode_fwd,
     hash_encode_mlp,
     init_hash_table,
     make_grid_spec,
-    table_f16,
 )
 from ngp_pl_torch.ops.sh import sh_encode
 from ngp_pl_torch.ops.trunc_exp import trunc_exp
@@ -98,8 +98,8 @@ class NGP(nn.Module):
             [nn.Parameter(w.to(dev)) for w in p["sigma_mlp"]])
         self.rgb_mlp = nn.ParameterList(
             [nn.Parameter(w.to(dev)) for w in p["rgb_mlp"]])
-        self._table16 = None
-        self._table16_key = None
+        self._enc_table = None
+        self._enc_table_key = None
 
     # --- parameters in the JAX layout ---------------------------------
     def _slots(self):
@@ -120,7 +120,7 @@ class NGP(nn.Module):
                 raise ValueError(
                     f"parameter {name}{'' if i is None else [i]} has shape "
                     f"{tuple(src.shape)}, the model expects {tuple(w.shape)}"
-                    " (check --n_levels/--log2_hashmap_size)")
+                    " (check --n_levels/--n_features/--log2_hashmap_size)")
             w.copy_(src.to(w.device, torch.float32))
 
     def params_numpy(self) -> Dict:
@@ -134,22 +134,24 @@ class NGP(nn.Module):
         return out
 
     # --- field queries --------------------------------------------------
-    def table16(self) -> torch.Tensor:
-        """The f16 table copy K1 reads.  It is rebuilt only when the table
-        changed: an in-place update (load_params, an optimizer step) bumps
-        the parameter's version counter, a move to another device its
-        storage."""
+    def encode_table(self) -> torch.Tensor:
+        """The table the encode reads (`encode_table`): at F=4 (K1) the f16
+        copy, at F=2 (K3) the f32 table itself, detached.  It is rebuilt
+        only when the table changed: an in-place update (load_params, an
+        optimizer step) bumps the parameter's version counter, a move to
+        another device its storage."""
         key = (self.hash_table.data_ptr(), self.hash_table._version)
-        if key != self._table16_key:
-            self._table16 = table_f16(self.hash_table.detach())
-            self._table16_key = key
-        return self._table16
+        if key != self._enc_table_key:
+            self._enc_table = encode_table(self.hash_table.detach(),
+                                           self.spec)
+            self._enc_table_key = key
+        return self._enc_table
 
     def _xn(self, x: torch.Tensor) -> torch.Tensor:
         return ((x + self.cfg.scale) / (2.0 * self.cfg.scale)).contiguous()
 
     def _h1(self, x: torch.Tensor) -> torch.Tensor:
-        return hash_encode_fwd(self._xn(x), self.table16(),
+        return hash_encode_fwd(self._xn(x), self.encode_table(),
                                self.sigma_mlp[0].detach(), self.spec)
 
     def density(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,6 +167,7 @@ class NGP(nn.Module):
               self.rgb_mlp[2])
         if torch.is_grad_enabled() and self.hash_table.requires_grad:
             h1 = hash_encode_mlp(self._xn(x), self.hash_table,
-                                 self.sigma_mlp[0], self.table16(), self.spec)
+                                 self.sigma_mlp[0], self.encode_table(),
+                                 self.spec)
             return field_tail_fn(h1, sh.detach(), *ws)
         return field_tail(self._h1(x), sh, *(w.detach() for w in ws))

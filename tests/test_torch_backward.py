@@ -2,10 +2,11 @@
 autograd Functions, against the JAX package's Pallas kernels run in
 interpret mode on the CPU:
 
-- the table gradient (K2 fused with the K5 / XLA scatters) against
-  `encode_mlp_bwd_pallas` followed by the per-level scatter-add, and by
-  `scatter_onehot` for the dense levels;
-- `HashEncodeMLP` against `jax.grad` of `_encode_mlp_pl_cv`;
+- the table gradient at F=4 (K2 fused with the K5 / XLA scatters) and at
+  F=2 (K4 fused with the XLA scatter) against `encode_mlp_bwd_pallas`
+  (unpaired and paired) followed by the per-level scatter-add, and at F=4
+  by `scatter_onehot` for the dense levels;
+- `HashEncodeMLP` against `jax.grad` of `_encode_mlp_pl_cv` at F=4 and F=2;
 - K8 against the interpreted `_field_tail_bwd`, and `FieldTail` against
   `jax.grad` of `field_tail`;
 - K6 against `scatter_accum`.
@@ -40,11 +41,11 @@ def _rel(a, b):
     return float(np.abs(np.asarray(a) - b).max() / np.abs(b).max())
 
 
-def _encode_inputs(N=256, seed=0):
-    spec_j = jhe.make_grid_spec(**SPEC_KW)
+def _encode_inputs(N=256, seed=0, F=4):
+    spec_j = jhe.make_grid_spec(**{**SPEC_KW, "n_features": F})
     rng = np.random.default_rng(seed)
-    table = rng.uniform(-1.0, 1.0, (spec_j.total_rows, 128))
-    table[:, 108:] = 0.0
+    table = rng.uniform(-1.0, 1.0, (spec_j.total_rows, spec_j.row_width))
+    table[:, 27 * F:] = 0.0
     w1 = rng.normal(0, 0.3, (spec_j.out_dim, 64)).astype(np.float32)
     x = rng.uniform(0, 1, (N, 3)).astype(np.float32)
     x[:3] = [[0, 0, 0], [1, 1, 1], [0.5, 0.25, 0.999999]]
@@ -52,43 +53,56 @@ def _encode_inputs(N=256, seed=0):
     return spec_j, table.astype(np.float32), w1, x, g
 
 
+def _spec_t(F=4):
+    return the.make_grid_spec(**{**SPEC_KW, "n_features": F})
+
+
 def _jax_d_rows(spec_j, w1, x, g):
+    """d_rows (L, N, W) bf16 of the unpaired (F=4) or paired (F=2) kernel."""
+    F = spec_j.n_features
     slot, local, frac = jhe._slots_local_frac_lm(jnp.clip(x, 0.0, 1.0), spec_j)
     d_rows = encode_mlp_bwd_pallas(
-        jhe._meta_T(local, frac, 1), jhe.expand_w1(jnp.asarray(w1), spec_j),
-        jnp.asarray(g), F=4, bn=128, interpret=True)
+        jhe._meta_T(local, frac, 2 if F == 2 else 1),
+        jhe.expand_w1(jnp.asarray(w1), spec_j), jnp.asarray(g), F=F, bn=128,
+        interpret=True)
     return slot, d_rows
 
 
-def test_grid_has_dense_and_hashed_levels():
-    spec = the.make_grid_spec(**SPEC_KW)
+@pytest.mark.parametrize("F", [4, 2])
+def test_grid_has_dense_and_hashed_levels(F):
+    spec = _spec_t(F)
     assert spec.dense == (True, True, False, False)
     assert spec.sizes == (8, 64, 128, 128)
 
 
-def test_plain_table_grad_matches_pallas_bwd_and_scatters():
-    """Against K2 interpreted + the per-level XLA scatter-add, and K5
-    (`scatter_onehot`, interpreted) on the dense levels.  Same rounding
-    points (bf16 g and w1, f32 d_wr, bf16 corner weights, bf16 products);
-    only the f32 sums run in another order.  Tolerance 1e-5 of max
-    |d_table| (measured 1.3e-7; 0 on the dense levels), as the card holds
-    the kernel to its plain version; dropping one bf16 rounding point
-    moves it by ~1e-3."""
-    spec_j, _, w1, x, g = _encode_inputs()
+@pytest.mark.parametrize("F", [4, 2])
+def test_plain_table_grad_matches_pallas_bwd_and_scatters(F):
+    """Against K2 (F=4) or K4 (F=2) interpreted + the per-level XLA
+    scatter-add, and at F=4 K5 (`scatter_onehot`, interpreted) on the dense
+    levels (the JAX package takes it only for 128-wide rows).  Same
+    rounding points (bf16 g and w1, f32 d_wr, bf16 products, corner
+    weights in bf16 at F=4 and f32 at F=2); only the f32 sums run in
+    another order.  Tolerance 1e-5 of max |d_table| (measured 1.3e-7 at
+    F=4, 0 on the dense levels; 7.8e-9 at F=2), as the card holds the
+    kernels to their plain version; dropping one bf16 rounding point moves
+    it by ~1e-3, rounding K4's weights to bf16 by 4.1e-3."""
+    spec_j, _, w1, x, g = _encode_inputs(F=F)
+    W = spec_j.row_width
     slot, d_rows = _jax_d_rows(spec_j, w1, x, g)
     parts = []
     for l in range(spec_j.n_levels):
-        parts.append(jnp.zeros((spec_j.sizes[l], 128), jnp.float32)
+        parts.append(jnp.zeros((spec_j.sizes[l], W), jnp.float32)
                      .at[slot[l] - spec_j.offsets[l]]
                      .add(d_rows[l].astype(jnp.float32)))
     d_ref = np.asarray(jnp.concatenate(parts, axis=0))
-    spec_t = the.make_grid_spec(**SPEC_KW)
     d_t = the.hash_encode_bwd_plain(torch.from_numpy(x), torch.from_numpy(g),
-                                    torch.from_numpy(w1), spec_t).numpy()
+                                    torch.from_numpy(w1), _spec_t(F)).numpy()
+    assert d_t.shape == d_ref.shape == (spec_j.total_rows, W)
     assert np.abs(d_ref).max() > 0
     assert _rel(d_t, d_ref) <= 1e-5
-    assert (d_t[:, 108:] == 0).all()
-
+    assert (d_t[:, 27 * F:] == 0).all()
+    if F == 2:
+        return
     with pltpu.force_tpu_interpret_mode():
         for l in range(2):                    # the dense levels (R <= 4096)
             R, off = spec_j.sizes[l], spec_j.offsets[l]
@@ -98,14 +112,16 @@ def test_plain_table_grad_matches_pallas_bwd_and_scatters():
             assert _rel(d_t[off:off + R], oh) <= 1e-5
 
 
-def test_hash_encode_mlp_grads_match_jax_grad():
+@pytest.mark.parametrize("F", [4, 2])
+def test_hash_encode_mlp_grads_match_jax_grad(F):
     """HashEncodeMLP's d_table (to the f32 table) and d_w1 against
-    jax.grad of `_encode_mlp_pl_cv` (interpreted Pallas, f16 rows);
-    h1 and d_w1 within 1e-5 (measured 1.8e-7 each).  d_table within 1e-4
-    (measured 7.8e-6): the forward's h1, and so g's path into d_wr, is
-    summed in another order, and one d_wr that differs in its last bit
-    rounds a product to the other bf16 neighbour (2^-8 of that term)."""
-    spec_j, table, w1, x, g = _encode_inputs(seed=1)
+    jax.grad of `_encode_mlp_pl_cv` (interpreted Pallas; f16 rows at F=4,
+    f32 rows at F=2); h1 and d_w1 within 1e-5 (measured at most 1.9e-7).
+    d_table within 1e-4 (measured 7.8e-6 at F=4, 9.1e-6 at F=2): the
+    forward's h1, and so g's path into d_wr, is summed in another order,
+    and one d_wr that differs in its last bit rounds a product to the
+    other bf16 neighbour (2^-8 of that term)."""
+    spec_j, table, w1, x, g = _encode_inputs(seed=1, F=F)
 
     def loss(t, w):
         return (jhe._encode_mlp_pl_cv(spec_j, 128, jnp.asarray(x), t, w)
@@ -116,11 +132,11 @@ def test_hash_encode_mlp_grads_match_jax_grad():
             spec_j, 128, jnp.asarray(x), jnp.asarray(table), jnp.asarray(w1)))
         dt_j, dw_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(table),
                                                    jnp.asarray(w1))
-    spec_t = the.make_grid_spec(**SPEC_KW)
+    spec_t = _spec_t(F)
     t_t = torch.nn.Parameter(torch.from_numpy(table))
     w_t = torch.nn.Parameter(torch.from_numpy(w1))
     h_t = the.hash_encode_mlp(torch.from_numpy(x), t_t, w_t,
-                              the.table_f16(t_t.detach()), spec_t)
+                              the.encode_table(t_t.detach(), spec_t), spec_t)
     (h_t * torch.from_numpy(g)).sum().backward()
     assert _rel(h_t.detach().numpy(), h_j) <= 1e-5
     assert _rel(t_t.grad.numpy(), dt_j) <= 1e-4
@@ -205,11 +221,12 @@ def test_plain_k6_matches_scatter_accum(R, P):
     assert _rel(got.numpy(), ref) <= 1e-5
 
 
-def test_cpu_dispatch_runs_plain_and_counts_no_launch():
-    spec_j, _, w1, x, g = _encode_inputs(N=32)
-    spec_t = the.make_grid_spec(**SPEC_KW)
-    counters = (the.hash_encode_bwd_cuda, tft.field_tail_bwd_cuda,
-                tsr.scatter_rows_cuda)
+@pytest.mark.parametrize("F", [4, 2])
+def test_cpu_dispatch_runs_plain_and_counts_no_launch(F):
+    spec_j, _, w1, x, g = _encode_inputs(N=32, F=F)
+    spec_t = _spec_t(F)
+    counters = (the.hash_encode_bwd_cuda, the.hash_encode_bwd_f2_cuda,
+                tft.field_tail_bwd_cuda, tsr.scatter_rows_cuda)
     before = [c.launches for c in counters]
     args = tuple(map(torch.from_numpy, (x, g, w1))) + (spec_t,)
     torch.testing.assert_close(the.hash_encode_bwd(*args),
@@ -231,11 +248,13 @@ def test_cpu_dispatch_runs_plain_and_counts_no_launch():
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A wrapper never falls back: each kernel entry rejects CPU tensors."""
     spec_j, _, w1, x, g = _encode_inputs(N=32)
-    spec_t = the.make_grid_spec(**SPEC_KW)
+    _, _, w1_2, _, _ = _encode_inputs(N=32, F=2)
     h1, sh, ws, g_sigma, g_rgb = _tail_inputs(P=32)
     calls = (
         lambda: the.hash_encode_bwd_cuda(*map(torch.from_numpy, (x, g, w1)),
-                                         spec_t),
+                                         _spec_t(4)),
+        lambda: the.hash_encode_bwd_f2_cuda(
+            *map(torch.from_numpy, (x, g, w1_2)), _spec_t(2)),
         lambda: tft.field_tail_bwd_cuda(*map(torch.from_numpy, (
             h1, sh, g_sigma, g_rgb, *ws))),
         lambda: tsr.scatter_rows_cuda(torch.from_numpy(h1),

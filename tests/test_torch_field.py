@@ -99,8 +99,8 @@ def test_trunc_exp_matches_with_gradient():
     assert float(xt.grad[-1]) == pytest.approx(np.exp(15.0), rel=1e-6)
 
 
-def _models(table_scale=1e3):
-    kw = dict(scale=0.5, n_levels=4, n_features_per_level=4,
+def _models(table_scale=1e3, F=4):
+    kw = dict(scale=0.5, n_levels=4, n_features_per_level=F,
               log2_hashmap_size=12, grid_size=32)
     jngp = JaxNGP(JaxNGPConfig(**kw), need_x_grad=False)
     params = jngp.init(jax.random.PRNGKey(0))
@@ -118,22 +118,27 @@ def _points(N=512, seed=2):
     return x, d
 
 
-def test_ngp_density_matches_jax():
-    """JAX's CPU density reads the f32 table (XLA path), the port its f16
-    copy: sigma within 1% relative."""
-    jngp, params, tngp = _models()
+@pytest.mark.parametrize("F,rtol", [(4, 1e-2), (2, 1e-5)])
+def test_ngp_density_matches_jax(F, rtol):
+    """JAX's CPU density reads the f32 table (XLA path).  F=4: the port
+    reads its f16 copy, sigma within 1% relative.  F=2: the port reads the
+    f32 table too, with the same rounding points (f32 corner weights, bf16
+    weighted rows, bf16 layers), sigma within 1e-5 relative."""
+    jngp, params, tngp = _models(F=F)
     x, _ = _points()
     s_j = np.asarray(jngp.density(params, jnp.asarray(x)))
     with torch.no_grad():
         s_t = tngp.density(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(s_t, s_j, rtol=1e-2)
+    np.testing.assert_allclose(s_t, s_j, rtol=rtol)
 
 
-def test_ngp_forward_matches_jax():
+@pytest.mark.parametrize("F", [4, 2])
+def test_ngp_forward_matches_jax(F):
     """JAX's CPU forward runs the XLA tail (bf16-rounded between layers) on
-    f32 rows; the port runs K7 numerics on the f16 table: sigma 1% relative,
-    rgb 1e-2 absolute."""
-    jngp, params, tngp = _models()
+    f32 rows; the port runs K7 numerics on the table the encode reads (the
+    f16 copy at F=4, the f32 table at F=2): sigma 1% relative, rgb 1e-2
+    absolute, as the two tails differ whatever the table."""
+    jngp, params, tngp = _models(F=F)
     x, d = _points()
     s_j, r_j = jngp.forward(params, jnp.asarray(x), jnp.asarray(d))
     with torch.no_grad():
@@ -143,10 +148,12 @@ def test_ngp_forward_matches_jax():
                                atol=1e-2)
 
 
-def test_ngp_params_layout_matches_jax():
-    jngp, params, tngp = _models(table_scale=1.0)
+@pytest.mark.parametrize("F", [4, 2])
+def test_ngp_params_layout_matches_jax(F):
+    jngp, params, tngp = _models(table_scale=1.0, F=F)
     got = tngp.params_numpy()
     assert got["hash_table"].shape == params["hash_table"].shape
+    assert got["hash_table"].shape[1] == 32 * F
     for name in ("sigma_mlp", "rgb_mlp"):
         assert [w.shape for w in got[name]] == [w.shape for w in params[name]]
         for a, b in zip(got[name], params[name]):
@@ -159,23 +166,43 @@ def test_ngp_rejects_uncovered_heads():
 
 
 def test_ngp_table16_built_once_and_refreshed_on_update():
-    """Field queries share one f16 table copy until the table changes."""
+    """At F=4 field queries share one f16 table copy until the table
+    changes."""
     kw = dict(scale=0.5, n_levels=4, n_features_per_level=4,
               log2_hashmap_size=12, grid_size=32)
     tngp = NGP(NGPConfig(**kw), device="cpu")
     x, _ = _points(N=64)
     with torch.no_grad():
         s0 = tngp.density(torch.from_numpy(x))
-    t16 = tngp.table16()
-    assert tngp.table16() is t16
+    t16 = tngp.encode_table()
+    assert t16.dtype == torch.float16
+    assert tngp.encode_table() is t16
     params = tngp.params_numpy()
     params["hash_table"] = params["hash_table"] * 1e3
     tngp.load_params(params)
-    t16_new = tngp.table16()
+    t16_new = tngp.encode_table()
     assert t16_new is not t16
     torch.testing.assert_close(
         t16_new, table_f16(torch.from_numpy(params["hash_table"])),
         rtol=0, atol=0)
     with torch.no_grad():
+        s1 = tngp.density(torch.from_numpy(x))
+    assert not torch.equal(s0, s1)
+
+
+def test_ngp_f2_encodes_the_f32_table_itself():
+    """At F=2 the encode reads the f32 parameter itself: no copy is made,
+    so an update is seen at once."""
+    kw = dict(scale=0.5, n_levels=4, n_features_per_level=2,
+              log2_hashmap_size=12, grid_size=32)
+    tngp = NGP(NGPConfig(**kw), device="cpu")
+    t = tngp.encode_table()
+    assert t.dtype == torch.float32 and t.shape[1] == 64
+    assert t.data_ptr() == tngp.hash_table.data_ptr()
+    assert not t.requires_grad
+    x, _ = _points(N=64)
+    with torch.no_grad():
+        s0 = tngp.density(torch.from_numpy(x))
+        tngp.hash_table.mul_(1e3)
         s1 = tngp.density(torch.from_numpy(x))
     assert not torch.equal(s0, s1)

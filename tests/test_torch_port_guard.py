@@ -112,7 +112,7 @@ def test_chip_smoke_fails_without_cuda():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain():
-    """On the card: both kernels build, launch, count and agree with their
+    """On the card: K1, K3 and K7 build, launch, count and agree with their
     plain versions (tolerances as chip_smoke.py states them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
@@ -132,6 +132,19 @@ def test_cuda_kernels_match_plain():
     h_p = he.hash_encode_fwd_plain(x, table, w1, spec)
     assert float((h_k - h_p).abs().max()) <= 1e-5 * float(h_p.abs().max())
 
+    spec2 = he.make_grid_spec(4, 2, 10, 4, 2.0)            # K3: f32 rows
+    table2 = (he.init_hash_table(spec2, g) * 1e4).cuda()
+    w1_2 = torch.randn((8, 64), generator=g).cuda()
+    n0 = he.hash_encode_fwd_f2_cuda.launches
+    feats = torch.empty((1000, 8), device="cuda")
+    h_k = he.hash_encode_fwd(x, table2, w1_2, spec2, feats)
+    assert he.hash_encode_fwd_f2_cuda.launches == n0 + 1
+    feats_p = torch.empty((1000, 8), device="cuda")
+    h_p = he.hash_encode_fwd_plain(x, table2, w1_2, spec2, feats_p)
+    assert float((h_k - h_p).abs().max()) <= 1e-5 * float(h_p.abs().max())
+    assert (float((feats - feats_p).abs().max())
+            <= 1e-5 * float(feats_p.abs().max()))
+
     h1 = torch.randn((1000, 64), generator=g).cuda()
     sh = torch.randn((1000, 16), generator=g).cuda() * 0.3
     ws = [torch.randn(s, generator=g).cuda() * 0.2
@@ -147,9 +160,14 @@ def test_cuda_kernels_match_plain():
 
 @pytest.mark.cuda
 def test_backward_kernels_match_plain_on_card():
-    """On the card: the table-gradient kernel, K8 and K6 build, launch,
-    count and agree with their plain versions (tolerances as chip_smoke.py
-    states them)."""
+    """On the card: the table-gradient kernels (K2+K5, K4), K8 and K6
+    build, launch, count and agree with their plain versions (tolerances
+    as chip_smoke.py states them).  The table gradients are held against
+    the plain version run on the CPU: at 1,000 rows cuBLAS sums the plain
+    version's d_wr = bf16(g) bf16(w1)^T in another order than the kernel
+    and the CPU (both sequential over the 64 inputs), which rounds single
+    products to the other bf16 neighbour (6.8e-5 of max at either F,
+    against 6.6e-8 for the kernel against the CPU)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     from ngp_pl_torch.device import resolve_device
@@ -164,9 +182,18 @@ def test_backward_kernels_match_plain_on_card():
     gr = torch.randn((1000, 64), generator=g).cuda()
     w1 = (torch.randn((16, 64), generator=g) * 0.3).cuda()
     n0 = he.hash_encode_bwd_cuda.launches
-    d_k = he.hash_encode_bwd(x, gr, w1, spec)
+    d_k = he.hash_encode_bwd(x, gr, w1, spec).cpu()
     assert he.hash_encode_bwd_cuda.launches == n0 + 1
-    d_p = he.hash_encode_bwd_plain(x, gr, w1, spec)
+    d_p = he.hash_encode_bwd_plain(x.cpu(), gr.cpu(), w1.cpu(), spec)
+    assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
+
+    spec2 = he.make_grid_spec(4, 2, 12, 4, 2.0)            # K4
+    w1_2 = (torch.randn((8, 64), generator=g) * 0.3).cuda()
+    n0 = he.hash_encode_bwd_f2_cuda.launches
+    d_k = he.hash_encode_bwd(x, gr, w1_2, spec2).cpu()
+    assert he.hash_encode_bwd_f2_cuda.launches == n0 + 1
+    assert d_k.shape == (spec2.total_rows, 64)
+    d_p = he.hash_encode_bwd_plain(x.cpu(), gr.cpu(), w1_2.cpu(), spec2)
     assert float((d_k - d_p).abs().max()) <= 1e-5 * float(d_p.abs().max())
 
     h1 = (torch.randn((1000, 64), generator=g) * 2.0).cuda()

@@ -184,12 +184,14 @@ def test_mark_invisible_cells_matches():
     assert (np.asarray(js.count_grid) != ts.count_grid.numpy()).mean() <= 1e-3
 
 
-def test_warmup_density_refresh_matches():
-    """JAX's noise is handed in.  Densities within 1% (the JAX CPU density
-    reads the f32 table, the port the f16 copy); occupancy agrees except
-    where a density lies within that 1% of the threshold."""
+@pytest.mark.parametrize("F", [4, 2])
+def test_warmup_density_refresh_matches(F):
+    """JAX's noise is handed in.  Densities within 1% (at F=4 the JAX CPU
+    density reads the f32 table, the port the f16 copy); occupancy agrees
+    except where a density lies within that 1% of the threshold."""
     K, poses, (w, h) = _grid_inputs()
-    jc, tc = JaxNGPConfig(**MODEL_KW), NGPConfig(**MODEL_KW)
+    kw = {**MODEL_KW, "n_features_per_level": F}
+    jc, tc = JaxNGPConfig(**kw), NGPConfig(**kw)
     jngp = JaxNGP(jc, need_x_grad=False)
     params = jngp.init(jax.random.PRNGKey(0))
     params["hash_table"] = params["hash_table"] * 1e3
@@ -233,21 +235,24 @@ def test_refresh_sanitises_nan_density():
     assert torch.isfinite(st.mean_density)
 
 
-def _render_models():
-    jngp = JaxNGP(JaxNGPConfig(**MODEL_KW), need_x_grad=False)
+def _render_models(F=4):
+    kw = {**MODEL_KW, "n_features_per_level": F}
+    jngp = JaxNGP(JaxNGPConfig(**kw), need_x_grad=False)
     params = jngp.init(jax.random.PRNGKey(0))
     params["hash_table"] = params["hash_table"] * 1e4
     # a denser sigma head so that rays terminate inside the box
     params["sigma_mlp"][1] = params["sigma_mlp"][1].at[:, 0].multiply(8.0)
-    tngp = NGP(NGPConfig(**MODEL_KW), device="cpu")
+    tngp = NGP(NGPConfig(**kw), device="cpu")
     tngp.load_params(jax.tree_util.tree_map(np.asarray, params))
     return jngp, params, tngp
 
 
-def test_round_renderer_matches_jax():
-    """The whole slice at grid 32, L=4, 300 rays, chunk 256: rgb and opacity
-    within 5e-3, depth within 1e-2, total samples within 1%."""
-    jngp, params, tngp = _render_models()
+@pytest.mark.parametrize("F", [4, 2])
+def test_round_renderer_matches_jax(F):
+    """The whole slice at grid 32, L=4, 300 rays, chunk 256, with the F=4
+    (K1) and the F=2 (K3) encode: rgb and opacity within 5e-3, depth
+    within 1e-2, total samples within 1%."""
+    jngp, params, tngp = _render_models(F)
     occ = _occ()
     ro, rd = _rays()
     out_j = make_device_round_renderer(jngp, JaxRenderConfig(), chunk=256)(

@@ -54,8 +54,7 @@ from ngp_pl_torch.training.system import NeRFSystem
 torch.set_num_threads(2)
 
 G = 32
-MODEL_KW = dict(scale=0.5, n_levels=4, n_features_per_level=4,
-                log2_hashmap_size=12, grid_size=G)
+MODEL_KW = dict(scale=0.5, n_levels=4, log2_hashmap_size=12, grid_size=G)
 MARCH_KW = dict(scale=0.5, grid_size=G, max_samples=1024)
 CHAIN = 1152          # > max_samples: the per-ray cap branch of the pool
 N_RAYS = 256
@@ -187,15 +186,17 @@ def test_pool_keeps_every_sample_past_the_tpu_staging_budget():
                                   t.counts.numpy())
 
 
-def _jax_model(scale_table=1e3, seed=0):
-    jngp = JaxNGP(JaxNGPConfig(**MODEL_KW), need_x_grad=False)
+def _jax_model(scale_table=1e3, seed=0, F=4):
+    jngp = JaxNGP(JaxNGPConfig(**MODEL_KW, n_features_per_level=F),
+                  need_x_grad=False)
     params = jngp.init(jax.random.PRNGKey(seed))
     params["hash_table"] = params["hash_table"] * scale_table
     return jngp, jax.tree_util.tree_map(np.array, params)
 
 
 def _port_model(params):
-    ngp = NGP(NGPConfig(**MODEL_KW), device="cpu")
+    F = params["hash_table"].shape[1] // 32
+    ngp = NGP(NGPConfig(**MODEL_KW, n_features_per_level=F), device="cpu")
     ngp.load_params(params)
     return ngp
 
@@ -241,7 +242,7 @@ def test_training_refresh_phases_match(erode):
     JAX state."""
     jngp, params = _jax_model()
     tngp = _port_model(params)
-    jc = JaxNGPConfig(**MODEL_KW)
+    jc = JaxNGPConfig(**MODEL_KW, n_features_per_level=4)
     thr = 0.01 * 1024 / np.sqrt(3.0)
     ds = JaxSynthetic(split="train", downsample=0.125, read_meta=False)
     js = jocc.mark_invisible_cells(
@@ -357,8 +358,8 @@ def test_batch_rays_match_jax():
             assert int(i.unique().numel()) == 1
 
 
-def _step_inputs():
-    jngp, params = _jax_model(scale_table=1e3, seed=2)
+def _step_inputs(F=4):
+    jngp, params = _jax_model(scale_table=1e3, seed=2, F=F)
     params["sigma_mlp"][1][:, 0] *= 4.0          # rays terminate
     occ = _shell_grid()
     ro, rd = _rays()
@@ -403,14 +404,16 @@ def _leaves(tree):
 TCFG = dict(lr=1e-2, num_epochs=2, iters_per_epoch=4)
 
 
-def test_one_train_step_matches_jax(monkeypatch):
+@pytest.mark.parametrize("F", [4, 2])
+def test_one_train_step_matches_jax(monkeypatch, F):
     """From identical params, Adam state (count 5, so epoch 1 of the
-    cosine), rays, noise and background: the pool is identical; loss within
-    1e-5; every gradient within 2e-3 of its max (bf16 rounding flips where
-    an f32 sum differs in its last bit; the hash table's gradient is a sum
-    of bf16 products into few rows); the updated params within 1e-3 * lr
-    and the moments within 1e-3 of their max."""
-    jngp, params, occ, ro, rd, target, noise = _step_inputs()
+    cosine), rays, noise and background, with the F=4 (K1, K2+K5) and the
+    F=2 (K3, K4) encode: the pool is identical; loss within 1e-5; every
+    gradient within 2e-3 of its max (bf16 rounding flips where an f32 sum
+    differs in its last bit; the hash table's gradient is a sum of bf16
+    products into few rows); the updated params within 1e-3 * lr and the
+    moments within 1e-3 of their max."""
+    jngp, params, occ, ro, rd, target, noise = _step_inputs(F)
     loss_j, res_j, grads_j = _jax_loss_and_grads(
         monkeypatch, jngp, params, occ, ro, rd, target, noise)
 
@@ -474,10 +477,11 @@ def test_one_train_step_matches_jax(monkeypatch):
     for a, b in zip(_leaves(mu_t) + _leaves(nu_t),
                     _leaves(st_new[0].mu) + _leaves(st_new[0].nu)):
         assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
-    # the f16 table copy follows the update
-    np.testing.assert_array_equal(
-        ngp.table16().float().numpy(),
-        np.asarray(p_t["hash_table"], np.float16).astype(np.float32))
+    # the table the encode reads follows the update: the f16 copy at F=4,
+    # the f32 table itself at F=2
+    want = np.asarray(p_t["hash_table"], {4: np.float16, 2: np.float32}[F])
+    np.testing.assert_array_equal(ngp.encode_table().float().numpy(),
+                                  want.astype(np.float32))
 
 
 def test_nonfinite_step_is_skipped():
@@ -586,12 +590,14 @@ def test_system_refuses_random_bg():
         NeRFSystem(TrainConfig(random_bg=True), device="cpu")
 
 
-def test_two_blocks_on_cpu(monkeypatch):
+@pytest.mark.parametrize("F", [4, 2])
+def test_two_blocks_on_cpu(monkeypatch, F):
     """The port alone: two 16-step blocks at 256 rays, each after one grid
     refresh (warmup phase); finite loss whose mean falls from the first
     block to the second, no skipped step."""
     system = _port_system(batch_size=256, img_size=32, n_train=4,
-                          log_every=16)
+                          log_every=16, n_features=F)
+    assert system.ngp.hash_table.shape[1] == 32 * F
     refreshes, losses = [], []
     refresh, step = system._refresh_grid, system._train_step
     monkeypatch.setattr(system, "_refresh_grid",
