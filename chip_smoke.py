@@ -13,7 +13,11 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            K1 and K2+K5 at 262,144 random points of the flagship grid, K3
            and K4 at 262,144 of the L16F2 grid, K7 at 1,048,576 samples,
            K8 at 262,144, K6 at 262,144 rows of 128 into 16,384 (also timed
-           against Tensor.index_add_)
+           against Tensor.index_add_), and the six K9 variants at the K9
+           bench's 196,608 samples (the plain versions timed there too)
+  micro_fwd  the K9 bench's entry point (ngp_pl_torch.benchmarking.micro_fwd,
+           interleaved rows too): one line per row with its time, bound and
+           launches, K1 at the same N beside them; every variant must launch
   slice    ngp_pl_torch.eval on the synthetic scene at 800x800 with the seeded
            flagship model (L=8, F=4, T=2^19, grid 128^3): occupancy grid from
            the train cameras plus one warmup refresh, two test views through
@@ -47,8 +51,9 @@ each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
 train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
 train_reference_l16f2 from the trained state on 2 batches,
 trained_render_l16f2 and a profiled block.
-Then the card line, the kernels line (all seven kernels, with their
-launches on each path) and, last, the result line.  Without a CUDA device,
+Then the card line, the kernels line (the seven kernels of the paths and
+the six K9 variants, with their launches on each path) and, last, the
+result line.  Without a CUDA device,
 or run outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -64,9 +69,6 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor-core peak
-FP32_FLOPS = 67e12             # f32 outside the tensor cores
 
 # Tolerances of each kernel against its plain version, with the reason.
 # K1 and K3 round where the plain version does (bf16 weighted row values,
@@ -88,6 +90,10 @@ K2_TOL = 1e-5                  # max |d_table - plain| / max |plain|, also K4
 # at most 8.5e-5 on the H100).
 K8_TOL = 1e-3                  # per output: max |x - plain| / max |plain|
 K6_TOL = 1e-5                  # f32 atomics in another order, relative
+# K9 rounds where its plain version does (bf16 weighted row values, bf16
+# w1); the tensor cores sum the exact bf16 products in f32 in another order
+# than the plain matmuls.
+K9_TOL = 1e-5                  # max |x - plain| / max |plain|, h1 and ft2
 # One train step with the kernels on the card, against the CPU's plain path
 # and against the plain versions run on the card; each limit is (loss
 # relative, gradient per parameter of its largest).  From the seeded state:
@@ -145,16 +151,10 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, tensor_flops: float, fp32_flops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = tensor_flops / BF16_TENSOR_FLOPS + fp32_flops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def check_fwd(torch, ngp, key):
     """K1 (F=4) or K3 (F=2), by `key`, at 262,144 random points of the
     model's grid, reading the table the encode reads."""
+    from ngp_pl_torch.benchmarking.roofline import bound, k1_work
     from ngp_pl_torch.ops import hash_encoding as he
 
     spec = ngp.spec
@@ -179,24 +179,10 @@ def check_fwd(torch, ngp, key):
                              f"feats {feat_err}")
     ms = time_ms(lambda: wrapper(x, table, w1, spec))
     plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, table, w1, spec))
-    # bytes: x in, h1 out, w1, and the table points these samples read:
-    # each distinct (row, corner point) once, F values of the table's type
-    # each (a row holds 27 points; its pad lanes are never read)
-    slot, local, _ = he.slots_local_frac_lm(x, spec)
-    corner = torch.tensor([[(c >> 2) & 1, (c >> 1) & 1, c & 1]
-                           for c in range(8)], device=x.device)
-    pts = local[:, :, None, :] + corner                  # (L, N, 8, 3)
-    pt = (pts[..., 0] * 3 + pts[..., 1]) * 3 + pts[..., 2]
-    points = int(torch.unique(slot[:, :, None] * he.BRICK_PTS ** 3
-                              + pt).numel())
-    rows = int(torch.unique(slot).numel())
-    del pts, pt
-    nbytes = (N * 12 + N * 64 * 4
-              + points * spec.n_features * table.element_size()
-              + w1.numel() * 4)
-    contraction = 2.0 * N * LF * 64
-    interp = N * spec.n_levels * (8 * spec.n_features * 2 + 8 * 2)
+    # bytes: x in, h1 out, w1 and the table points these samples read
+    nbytes, contraction, interp, points = k1_work(x, spec, table, w1)
     bound_ms, bound_by = bound(nbytes, contraction, interp)
+    rows = int(torch.unique(he.slots_local_frac_lm(x, spec)[0]).numel())
     return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K1_TOL,
                 feats_max_abs_err=feat_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms,
@@ -207,6 +193,7 @@ def check_fwd(torch, ngp, key):
 
 
 def check_k7(torch, ngp):
+    from ngp_pl_torch.benchmarking.roofline import bound
     from ngp_pl_torch.ops import field_tail as ft
     from ngp_pl_torch.ops.sh import sh_encode
 
@@ -239,6 +226,7 @@ def check_bwd(torch, ngp, key):
     """The table-gradient kernel, K2 fused with the K5 scatter (F=4) or K4
     fused with the per-level scatter-add (F=2), by `key`, at 262,144
     random points of the model's grid."""
+    from ngp_pl_torch.benchmarking.roofline import bound
     from ngp_pl_torch.ops import hash_encoding as he
 
     spec = ngp.spec
@@ -275,6 +263,7 @@ def check_bwd(torch, ngp, key):
 
 def check_k8(torch, ngp):
     """K8 at 262,144 samples: dh1 and the four weight gradients."""
+    from ngp_pl_torch.benchmarking.roofline import bound
     from ngp_pl_torch.ops import field_tail as ft
     from ngp_pl_torch.ops.sh import sh_encode
 
@@ -319,6 +308,7 @@ def check_k6(torch):
     """K6 at 262,144 rows of 128 floats into 16,384, against its plain
     version and timed against `Tensor.index_add_`, the one PyTorch call
     that computes the same function."""
+    from ngp_pl_torch.benchmarking.roofline import bound
     from ngp_pl_torch.ops import scatter_rows as sr
 
     P, W, R = 262144, 128, 16384
@@ -341,6 +331,77 @@ def check_k6(torch):
     return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K6_TOL,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, n=P, bytes=nbytes)
+
+
+def check_k9(torch):
+    """Each K9 variant against its plain version at the bench's N=196,608,
+    L=8: the bench's random rows, except for no_decode and stream, which
+    read the rows' bits as f32 and would meet the inf and NaN patterns in
+    them (u >= 0x7F800000, 1/256 of the words); they get the bits of f32
+    U(-2, 2).  Returns, by variant, the errors and the plain version's
+    time on the same inputs; for stream, which contracts nothing, also the
+    time of the PyTorch calls that compute its function (the sum over
+    levels of the rows as f32, and ft2's zeros)."""
+    from ngp_pl_torch.benchmarking import micro_fwd as mf
+    from ngp_pl_torch.ops import encode_ablations as ea
+
+    n = mf.N_BENCH
+    (rows, meta_T, w1big), _ = mf.make_inputs(n, torch.device("cuda"))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    f32_rows = (torch.rand(rows.shape, generator=g, device="cuda") * 4.0
+                - 2.0).view(torch.int32)
+    out = {}
+    for v in ea.VARIANTS:
+        r = f32_rows if v in ("no_decode", "stream") else rows
+        if v == "full_il":
+            r = ea.interleave(r, mf.BN)
+        got = ea.CUDA[v](r, meta_T, w1big, mf.BN)
+        torch.cuda.synchronize()
+        ref = ea.encode_ablation_plain(v, r, meta_T, w1big)
+        err = {name: float((a - b).abs().max())
+               for name, a, b in zip(("h1", "ft2"), got, ref)}
+        scale = {name: float(b.abs().max())
+                 for name, b in zip(("h1", "ft2"), ref)}
+        if not all(math.isfinite(e) and e <= K9_TOL * scale[k]
+                   for k, e in err.items()):
+            raise AssertionError(f"K9 {v} disagrees: {err} (scale {scale})")
+        del got, ref
+        plain_ms = time_ms(lambda: ea.encode_ablation_plain(v, r, meta_T,
+                                                            w1big),
+                           runs=5, warmup=1)
+        out[v] = dict(max_abs_err=max(err.values()), abs_err=err,
+                      max_rel_err=max(err[k] / scale[k] if scale[k] else 0.0
+                                      for k in err),
+                      tol_rel=K9_TOL, plain_ms=plain_ms, n=n,
+                      rows="f32 U(-2, 2) bits" if v in ("no_decode", "stream")
+                      else "the bench's random u32")
+        if v == "stream":
+            ft2_shape = (r.shape[0], ea.F, r.shape[1])
+            out[v]["library_ms"] = time_ms(
+                lambda: (r.view(torch.float32).sum(0),
+                         torch.zeros(ft2_shape, device="cuda")))
+        torch.cuda.empty_cache()
+    return out
+
+
+def micro_fwd_path(torch, card):
+    """The K9 bench's entry point (`micro_fwd.run`, interleaved rows too)
+    with the counts from 0 just before and read just after: every variant
+    must launch.  Returns its records by row and the launches."""
+    from ngp_pl_torch.benchmarking import micro_fwd as mf
+    from ngp_pl_torch.ops import encode_ablations as ea
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    records = mf.run(device="cuda", interleaved=True,
+                     emit=lambda rec: log({"phase": "micro_fwd", "card": card,
+                                           **rec}))
+    launches = {k: c.launches for k, c in counters.items()}
+    if not all(ea.CUDA[v].launches > 0 for v in ea.VARIANTS):
+        raise AssertionError(f"a K9 variant did not launch: {launches}")
+    torch.cuda.empty_cache()
+    return {r["row"]: r for r in records}, launches
 
 
 def reference_crop(torch, res, tcfg, n_rays: int = 1024):
@@ -436,6 +497,7 @@ def _sync(torch, dev) -> None:
 
 
 def _counters():
+    from ngp_pl_torch.ops import encode_ablations as ea
     from ngp_pl_torch.ops import field_tail as ft
     from ngp_pl_torch.ops import hash_encoding as he
     from ngp_pl_torch.ops import scatter_rows as sr
@@ -443,7 +505,8 @@ def _counters():
     return {"K1": he.hash_encode_fwd_cuda, "K7": ft.field_tail_cuda,
             "K2+K5": he.hash_encode_bwd_cuda, "K8": ft.field_tail_bwd_cuda,
             "K6": sr.scatter_rows_cuda, "K3": he.hash_encode_fwd_f2_cuda,
-            "K4": he.hash_encode_bwd_f2_cuda}
+            "K4": he.hash_encode_bwd_f2_cuda,
+            **{f"K9/{v}": ea.CUDA[v] for v in ea.VARIANTS}}
 
 
 def path_kernels(cfg):
@@ -522,9 +585,9 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
 
 def tpu_staged_samples(torch, system, rays_o, rays_d, noise) -> int:
     """How many samples of this batch's pool the JAX package's compaction
-    would hold: it stages only the first pool_size/16 non-empty groups of
-    32 chain candidates (ngp_pl_tpu/ops/ray_march.py:790-801), and repeats
-    positions in the slots past them."""
+    holds: it stages only the first pool_size/16 non-empty groups of 32
+    chain candidates (ngp_pl_tpu/ops/ray_march.py:790-801) and repeats one
+    position in the slots past them, as the port does after it."""
     from ngp_pl_torch.models.rendering import scene_hits
     from ngp_pl_torch.ops import ray_march as trm
 
@@ -912,10 +975,16 @@ def main() -> int:
                  **checks[key]})
             torch.cuda.empty_cache()
         del model
+    for variant, check in check_k9(torch).items():
+        checks[f"K9/{variant}"] = check
+        log({"phase": "kernels", "kernel": f"K9/{variant}", **check})
+
+    # the K9 bench: counts from 0 just before, read just after
+    launches = {}
+    micro, launches["micro_fwd"] = micro_fwd_path(torch, card)
 
     # the render path: counts from 0 just before, read just after
     tcfg = tcfgs["flagship"]
-    launches = {}
     res, out = render_slice(torch, tcfg, views=2)
     launches["render"] = out["launches"]
     log({"phase": "slice", "card": card, **out})
@@ -981,6 +1050,30 @@ def main() -> int:
             "library_ms": k.get("library_ms"),
             "library_note": ("Tensor.index_add_" if "library_ms" in k
                              else no_library)})
+    # K9 on its own path, the bench: times, bounds and launches from the
+    # `micro_fwd` run, errors and plain times from the kernel checks
+    bench = "benchmarking/micro_pallas_fwd.py"
+    bodies = {"full": "full_kernel :84", "no_decode": "no_decode_kernel :112",
+              "no_wrow": "no_wrow_kernel :141", "no_ft": "no_ft_kernel :167",
+              "stream": "stream_kernel :190",
+              "full_il": "full_kernel_il :295"}
+    for v, body in bodies.items():
+        k, m, key = checks[f"K9/{v}"], micro[v], f"K9/{v}"
+        calls = (f"{bench}:267 (make_variant_interleaved)" if v == "full_il"
+                 else f"{bench}:56 (make_variant), :231 (make_variant_bn)")
+        entries.append({
+            "name": f"encode_ablation_{v} (K9)", "route": "cuda",
+            "source": "ngp_pl_torch/csrc/encode_ablations.cu",
+            "replaces": f"{calls}; body {body}",
+            "launches": launches["micro_fwd"][key],
+            "launches_by_path": {p: c[key] for p, c in launches.items()},
+            "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
+            "tol_rel": k["tol_rel"], "ms": m["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": k.get("library_ms"),
+            "library_note": ("Tensor.sum over levels of the rows as f32, "
+                             "torch.zeros for ft2" if "library_ms" in k
+                             else "the contraction is the kernel's own")})
     print(card, flush=True)
     log({"kernels": entries, "seconds": time.perf_counter() - t_start})
     log({"ok": True, "device": {"platform": "gpu",

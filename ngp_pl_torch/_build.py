@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("hash_encode_fwd", "field_tail_fwd", "hash_encode_bwd",
-           "field_tail_bwd", "scatter_rows")
+           "field_tail_bwd", "scatter_rows", "encode_ablations")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -318,10 +318,19 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
 
     Slot p holds the (p+1)-th occupied candidate in (ray, step) order,
     found by a sorted search of the running count; at saturation the tail
-    of the batch drops out.  The TPU stages groups of 32 candidates and
-    keeps at most pool_size/16 non-empty groups, which binds only when
-    groups hold fewer than ~16 samples on average; below that bound both
-    give the same pool (tests/test_torch_train.py checks it)."""
+    of the batch drops out.
+
+    The JAX package stages only the first `blocks = 2 * (P // GRP)`
+    non-empty groups of GRP candidates (GRP = 32, halved while K % GRP).
+    Slots past the samples those groups hold (when groups hold fewer than
+    ~16 samples on average, as in grid warmup) take the last staged group:
+    its ray, and chain step kb[3] + 7: there j is at least the group's
+    popcount, so the reference's branch-free `_nth_set_bit(bits, j)` goes
+    high at every step and gives bitpos 31, ksub 3 and bitpos & 7 = 7
+    (ray_march.py:724-738, 845-850); kb[3] is the chain step of lane 24 of
+    the group, zero padding when GRP < 32 (ray_march.py:800-850).  So those slots repeat one position.
+    That is a defect of the reference; the port reproduces it so that both
+    give the same pool, loss and gradients (ROADMAP, reference defects)."""
     N, K = occ.shape
     if K <= max_samples:
         rm_counts = occ.sum(dim=1, dtype=torch.int32)
@@ -339,6 +348,24 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
     slot = torch.arange(P, dtype=torch.int32, device=occ.device)
     valid = slot < total
     src = torch.searchsorted(running, slot + 1)
+
+    # the staging budget: g_last is the last staged group (the blocks-th
+    # non-empty one; the last group when fewer are non-empty, and then the
+    # staged groups hold every sample)
+    grp = 32
+    while K % grp:
+        grp //= 2
+    NG = N * K // grp
+    nonempty = occ.reshape(NG, grp).any(dim=1)
+    g_last = torch.clamp_max(torch.searchsorted(
+        torch.cumsum(nonempty, dim=0, dtype=torch.int32),
+        max(2 * (P // grp), 1)), NG - 1)
+    # a (1,) index: a 0-dim one would be read on the host
+    staged = running[(g_last * grp + (grp - 1)).reshape(1)]
+    # flat (ray, kb[ksub]) of the group, ksub = 31 >> 3 = 3: lane 24, or
+    # step 0 of its ray when GRP < 32; then bitpos & 7 = 7
+    kb3 = g_last * grp + 24 if grp == 32 else (g_last // (K // grp)) * K
+    src = torch.where(slot < staged, src, kb3 + 7)
     src = torch.where(valid, src, 0)
     ray = src // K
     k = (src % K).to(torch.float32)

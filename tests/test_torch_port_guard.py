@@ -215,3 +215,40 @@ def test_backward_kernels_match_plain_on_card():
     assert sr.scatter_rows_cuda.launches == n0 + 1
     ref = sr.scatter_rows_plain(h1, idx, 37)
     assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_encode_ablation_variants_match_plain_on_card():
+    """On the card: each K9 variant builds, launches, counts and agrees with
+    its plain version within 1e-5 of max |h1| and of max |ft2| (N=1,024,
+    bn=512; f32 U(-2, 2) bits for the variants that read the rows as f32,
+    the bench's random rows for the others)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from ngp_pl_torch.device import resolve_device
+    from ngp_pl_torch.ops import encode_ablations as ea
+
+    resolve_device("cuda")
+    rng = np.random.default_rng(3)
+    L, n, bn = 8, 1024, 512
+    for variant in ea.VARIANTS:
+        if variant in ("no_decode", "stream"):
+            rows = rng.uniform(-2, 2, (L, n, 64)).astype(np.float32).view(
+                np.int32)
+        else:
+            rows = rng.integers(0, 2 ** 31, (L, n, 64)).astype(np.int32)
+        rows = torch.from_numpy(rows).cuda()
+        if variant == "full_il":
+            rows = ea.interleave(rows, bn)
+        meta_T = torch.from_numpy(
+            rng.random((L, 4, n)).astype(np.float32)).cuda()
+        w1big = torch.from_numpy(
+            rng.random((L, 128, 64)).astype(np.float32)).cuda()
+        n0 = ea.CUDA[variant].launches
+        got = ea.encode_ablation(variant, rows, meta_T, w1big, bn)
+        assert ea.CUDA[variant].launches == n0 + 1
+        for a, b in zip(got, ea.encode_ablation_plain(variant, rows, meta_T,
+                                                      w1big)):
+            assert bool(torch.isfinite(a).all())
+            assert (float((a - b).abs().max())
+                    <= 1e-5 * float(b.abs().max()))

@@ -83,14 +83,16 @@ def _hits(ro, rd):
     return np.array(jax.jit(lambda o, d: jax_scene_hits(o, d, 0.5))(ro, rd))
 
 
-def _staged_samples(occ, ro, rd, noise, pool_size):
+def _staged_samples(occ, ro, rd, noise, pool_size, chain=CHAIN):
     """How many pool samples the TPU's group staging holds: it keeps the
-    first pool_size/16 non-empty groups of 32 candidates
-    (ngp_pl_tpu/ops/ray_march.py:790-801)."""
+    first 2 * (pool_size // GRP) non-empty groups of GRP candidates (GRP =
+    32, halved while it does not divide the chain;
+    ngp_pl_tpu/ops/ray_march.py:790-801).  Counted before the per-ray cap,
+    which these rays do not reach."""
     h = _hits(ro, rd)
     t0 = trm._fma(torch.from_numpy(noise), trm._f32(math.sqrt(3) / 1024),
                   torch.from_numpy(h[:, 0]))
-    K = -(-CHAIN // 8) * 8
+    K = -(-chain // 8) * 8
     bits, ts = trm._occ_window_chain(
         torch.from_numpy(ro), torch.from_numpy(rd), t0, K // 8,
         trm.occupancy_windows(torch.from_numpy(occ)), scale=0.5,
@@ -99,9 +101,12 @@ def _staged_samples(occ, ro, rd, noise, pool_size):
     ok = bits.reshape(len(ro), K) & (ts >= 0) & (
         ts < torch.from_numpy(h[:, 1])[:, None]) & (
         torch.from_numpy(h[:, 0])[:, None] >= 0)
-    groups = ok.reshape(-1, 32).sum(1)
+    grp = 32
+    while K % grp:
+        grp //= 2
+    groups = ok.reshape(-1, grp).sum(1)
     groups = groups[groups > 0]
-    return int(groups[:2 * (pool_size // 32)].sum())
+    return int(groups[:max(2 * (pool_size // grp), 1)].sum())
 
 
 @pytest.mark.parametrize("grid", ["shell", "random", "full", "empty"])
@@ -150,20 +155,17 @@ def test_train_pool_identical(grid, mult):
                                       np.asarray(getattr(j, f)), err_msg=f)
 
 
-def test_pool_keeps_every_sample_past_the_tpu_staging_budget():
-    """On a sparse grid the TPU's staging (pool_size/16 groups of 32
-    candidates) can hold fewer samples than the pool has slots; its later
-    slots then repeat positions.  The port keeps every sample: its pool is
-    the occupied candidates in (ray, step) order, and it agrees with JAX on
-    every slot the staging holds."""
+def _sparse_pools(chain, P=N_RAYS * 8):
+    """The JAX and port pools of a batch on a sparse grid (4% of cells),
+    where the TPU's staging holds fewer samples than the pool has slots;
+    also that staged count."""
     occ = (np.random.default_rng(7).random((1, G, G, G)) < 0.04).astype(
         np.uint8)
     ro, rd = _rays()
     noise = np.random.default_rng(5).random(N_RAYS).astype(np.float32)
-    P = N_RAYS * 8
-    staged = _staged_samples(occ, ro, rd, noise, P)
+    staged = _staged_samples(occ, ro, rd, noise, P, chain)
     h = _hits(ro, rd)
-    kw = dict(MARCH_KW, pool_size=P, chain_length=CHAIN)
+    kw = dict(MARCH_KW, pool_size=P, chain_length=chain)
     j = jrm.march_rays_train_window(
         jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(h), jnp.asarray(noise),
         jrm.occupancy_windows(jnp.asarray(occ)), **kw)
@@ -171,19 +173,93 @@ def test_pool_keeps_every_sample_past_the_tpu_staging_budget():
         torch.from_numpy(ro), torch.from_numpy(rd), torch.from_numpy(h),
         torch.from_numpy(noise), trm.occupancy_windows(torch.from_numpy(occ)),
         **kw)
+    return j, t, staged
+
+
+# chain lengths whose candidate groups have 32 and 16 lanes (at 16, as at
+# 8, the group's kb[2:4] are the reference's zero padding)
+@pytest.mark.parametrize("chain", [CHAIN, 1136])
+def test_pool_matches_jax_past_the_tpu_staging_budget(chain):
+    """Past the samples its staged groups hold, the JAX package's pool
+    slots repeat the last staged group's position (a defect of the
+    reference); the port reproduces it, so the whole pool is bit-identical:
+    ts, ray_idx, valid, counts, offsets and total (and every other field)."""
+    j, t, staged = _sparse_pools(chain)
+    assert staged < int(j.total)
+    for f in j._fields:
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)), err_msg=f)
+
+
+def test_pool_bookkeeping_and_repeated_slot_past_the_tpu_staging_budget():
+    """Past the staging budget the pool's bookkeeping still keeps every
+    sample: rm_counts and offsets count each occupied candidate, and the
+    saturated pool's counts fill it with the head of the batch, as without
+    the budget.  Its slots do not: every valid slot past the staged count
+    holds one (ray, t), the last staged group's last candidate at GRP 32
+    (the reference defect), while the slots before it are distinct and
+    ordered by (ray, t)."""
+    _, t, staged = _sparse_pools(CHAIN)
     total = int(t.total)
-    assert staged < total == int(j.total)
-    for f in ("ts", "ray_idx"):
-        np.testing.assert_array_equal(getattr(t, f).numpy()[:staged],
-                                      np.asarray(getattr(j, f))[:staged])
-    # the port's slots: per ray, consecutive and increasing in t
-    ray = t.ray_idx.numpy()[:total]
-    ts = t.ts.numpy()[:total]
-    assert (np.diff(ray) >= 0).all()
-    same = np.diff(ray) == 0
-    assert (np.diff(ts)[same] > 0).all()
-    np.testing.assert_array_equal(np.bincount(ray, minlength=N_RAYS),
-                                  t.counts.numpy())
+    rm = t.rm_counts.numpy()
+    assert total == N_RAYS * 8 == int(t.counts.sum()) < int(rm.sum())
+    np.testing.assert_array_equal(t.offsets.numpy(), np.cumsum(rm) - rm)
+    np.testing.assert_array_equal(
+        t.counts.numpy(), np.clip(total - (np.cumsum(rm) - rm), 0, rm))
+    ray, ts = t.ray_idx.numpy()[:total], t.ts.numpy()[:total]
+    assert staged < total
+    assert len(set(zip(ray[staged:], ts[staged:]))) == 1
+    head = np.stack([ray[:staged], ts[:staged]])
+    assert len(set(map(tuple, head.T))) == staged
+    same = np.diff(ray[:staged]) == 0
+    assert (np.diff(ray[:staged]) >= 0).all()
+    assert (np.diff(ts[:staged])[same] > 0).all()
+
+
+@pytest.mark.parametrize("chain", [256, 1136])
+def test_pool_compaction_reads_nothing_on_the_host(chain):
+    """The train step is host-bound, so the compaction, staging budget
+    included, queues its work without reading a value back: no
+    `aten._local_scalar_dense` (what `.item()` and a 0-dim tensor index
+    call), at GRP 32 and at GRP 16 past the per-ray cap."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(0)
+    occ = torch.rand((64, chain), generator=g) < 0.05
+    t0 = torch.rand(64, generator=g)
+    with Ops() as ops:
+        trm._compact_to_pool(occ, t0, 1024, 512, 0.01)
+    assert ops.names and not [n for n in ops.names if "local_scalar" in n]
+
+
+def test_jax_nth_set_bit_is_31_past_the_popcount():
+    """The JAX package's `_nth_set_bit` over random words and j in [0, 40):
+    the (j+1)-th set bit below the popcount, and 31 wherever j >= popcount,
+    the case the port's compaction writes as the constant step kb[3] + 7
+    (31 >> 3 = 3, 31 & 7 = 7)."""
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 2 ** 32, 4096, dtype=np.int64)
+    words[:64] = 0
+    words[64:128] = 2 ** 32 - 1
+    words[128:512] &= rng.integers(0, 2 ** 32, 384, dtype=np.int64)
+    j = rng.integers(0, 40, 4096).astype(np.int32)
+    got = np.asarray(jrm._nth_set_bit(jnp.asarray(words.astype(np.uint32)),
+                                      jnp.asarray(j)))
+    pop = np.array([bin(int(w)).count("1") for w in words])
+    past = j >= pop
+    assert past.sum() > 500 and (got[past] == 31).all()
+    for w, jj, pos in zip(words[~past], j[~past], got[~past]):
+        bits = [b for b in range(32) if (int(w) >> b) & 1]
+        assert pos == bits[jj]
 
 
 def _jax_model(scale_table=1e3, seed=0, F=4):
