@@ -12,9 +12,12 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            could take (bytes over 3.35 TB/s or operations over peak rate);
            K1 and K2+K5 at 262,144 random points of the flagship grid, K3
            and K4 at 262,144 of the L16F2 grid, K7 at 1,048,576 samples,
-           K8 at 262,144, K6 at 262,144 rows of 128 into 16,384 (also timed
-           against Tensor.index_add_), and the six K9 variants at the K9
-           bench's 196,608 samples (the plain versions timed there too)
+           K8 at 262,144 (both also against their plain versions with
+           float64 sums, and at the train pool's 393,216), K6 at 262,144
+           rows of 128 into 16,384 (also timed against
+           Tensor.index_add_), and the six K9
+           variants at the K9 bench's 196,608 samples (the plain versions
+           timed there too)
   micro_fwd  the K9 bench's entry point (ngp_pl_torch.benchmarking.micro_fwd,
            interleaved rows too): one line per row with its time, bound and
            launches, K1 at the same N beside them; every variant must launch
@@ -62,7 +65,6 @@ import contextlib
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -75,20 +77,37 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # bf16 w1, and at F=4 bf16 corner weights); only the f32 summation order
 # differs.
 K1_TOL = 1e-5                  # max |h1 - plain| / max |plain|, also K3
-# K7 sums each f32 accumulator in another order than the plain matmuls, so
-# an activation can land on the other side of a bf16 rounding step: one
-# bf16 ulp (2^-8 relative) of one hidden unit moves rgb by ~1e-3.
-K7_TOL = 4e-3                  # max |rgb - plain| and max |log sigma - plain|
+# K7 and K8 are each held against two plain versions on the same inputs:
+# the f32 one (the TPU's numerics, which the CPU tests tie to the JAX
+# package) and the same math with float64 sums, which no summation order
+# can change.  The tensor cores sum exact bf16 products in another order
+# than an f32 chain, so an activation can land on the other side of a bf16
+# rounding step: one bf16 ulp (2^-8 relative) of one hidden unit moves rgb
+# by ~1e-3.  The f32 plain version's own sums flip such steps too, so its
+# miss of its float64 twin is what a correct kernel may read against it.
+# Each limit lies above that miss and below what wrong kernels read: the
+# plain math with one fault each, on these inputs (CPU readings of
+# ngp_pl_torch/benchmarking/field_tail_gates.py, in PERF.md).
+# K7: the f32 plain version misses float64 sums by 3.52e-3 at 1,048,576
+# samples; an f16-rounded r2 reads 5.6e-3, an unrounded h 1.1e-2.
+K7_TOL = 4e-3                  # max |rgb - plain| and max |log sigma - plain|,
+#                                against both plain versions
 # The table-gradient kernels (K2 + K5, K4) round where their plain version
 # does (bf16 g and w1, bf16 products, and at F=4 bf16 corner weights); the
 # f32 atomics add in another order, and a feature gradient that differs in
 # its last bit can round one product to the other bf16 neighbour (2^-8 of
 # one term).
 K2_TOL = 1e-5                  # max |d_table - plain| / max |plain|, also K4
-# K8: as K7, an activation or gradient can round to the other bf16
-# neighbour; each output is held to 1e-3 of its largest magnitude (measured
-# at most 8.5e-5 on the H100).
+# K8, per output, of its largest magnitude.  The f32 plain version misses
+# float64 sums by 4.47e-3 of max |dWr2| at 262,144 samples (the 64 rows of
+# h1 x20 put |h| in the hundreds and flip bf16(h)), and by 4.2e-5 at
+# 393,216.  Against it the limit catches a skipped tile of 128 samples
+# (3.6e-2), an unrounded h (6.3e-2), a missing mask or TruncExp term
+# (>= 0.94); the subtler faults, one sample skipped (4.8e-3) or an
+# unrounded d_z3 (4.9e-3), only the float64 gate catches (an f32-pipe
+# kernel read 8.5e-5 against the f32 plain version).
 K8_TOL = 1e-3                  # per output: max |x - plain| / max |plain|
+K8_F32_TOL = 1e-2              # the same against the f32 plain version
 K6_TOL = 1e-5                  # f32 atomics in another order, relative
 # K9 rounds where its plain version does (bf16 weighted row values, bf16
 # w1); the tensor cores sum the exact bf16 products in f32 in another order
@@ -118,6 +137,9 @@ STEP_TOL_L16F2 = (1e-5, 1e-2)
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
 TRAINED_BATCHES_L16F2 = (7, 8)
 TRAIN_STEPS = 512              # 32 blocks: 16 warmup refreshes, then phases
+K7_N = 1048576                 # K7's samples in the kernels phase
+K8_N = 262144                  # K8's
+POOL_N = 8192 * 48             # the train pool at x48, both kernels again
 
 
 def log(obj) -> None:
@@ -131,30 +153,11 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median over `runs` of the CUDA-event time of one call, after warmup.
-    Inputs stay warm in L2 between calls, as the table does on the render
-    path, where every round reads it again."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def check_fwd(torch, ngp, key):
     """K1 (F=4) or K3 (F=2), by `key`, at 262,144 random points of the
     model's grid, reading the table the encode reads."""
     from ngp_pl_torch.benchmarking.roofline import bound, k1_work
+    from ngp_pl_torch.benchmarking.timing import time_ms
     from ngp_pl_torch.ops import hash_encoding as he
 
     spec = ngp.spec
@@ -193,33 +196,46 @@ def check_fwd(torch, ngp, key):
 
 
 def check_k7(torch, ngp):
+    """K7 at the render chunk's 1,048,576 samples and at the train pool's
+    393,216 (batch 8192 x 48): error against both plain versions (f32 sums
+    and float64 sums), times (the wrapper's CUDA-event time, and the
+    kernel's device time alone) and bound at both."""
+    from ngp_pl_torch.benchmarking.field_tail_gates import (K7_INPUTS,
+                                                            k7_error,
+                                                            tail_inputs)
     from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
     from ngp_pl_torch.ops import field_tail as ft
-    from ngp_pl_torch.ops.sh import sh_encode
 
-    P = 1048576
-    g = torch.Generator().manual_seed(2)
-    h1 = (torch.randn((P, 64), generator=g) * 2.0).cuda()
-    h1[:64] *= 1e3                       # saturate the +/-30 clamp
-    d = torch.randn((P, 3), generator=g)
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    sh = sh_encode((d + 1.0) * 0.5).cuda()
     ws = [ngp.sigma_mlp[1].detach()] + [w.detach() for w in ngp.rgb_mlp]
-    s_k, r_k = ft.field_tail_cuda(h1, sh, *ws)
-    torch.cuda.synchronize()
-    s_p, r_p = ft.field_tail_plain(h1, sh, *ws)
-    err = max(float((r_k - r_p).abs().max()),
-              float((torch.log(s_k) - torch.log(s_p)).abs().max()))
-    if not err <= K7_TOL:
-        raise AssertionError(f"K7 disagrees: {err}")
-    ms = time_ms(lambda: ft.field_tail_cuda(h1, sh, *ws))
-    plain_ms = time_ms(lambda: ft.field_tail_plain(h1, sh, *ws))
-    nbytes = P * (64 * 4 + 16 * 4 + 4 + 12) + sum(w.numel() for w in ws) * 4
-    flops = 2.0 * P * sum(w.shape[0] * w.shape[1] for w in ws)
-    bound_ms, bound_by = bound(nbytes, flops, 0.0)
-    return dict(max_abs_err=err, tol_abs=K7_TOL, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, n=P, bytes=nbytes,
-                flops=flops)
+    out = {}
+    for P in (K7_N, POOL_N):
+        h1, sh = (t.cuda() for t in tail_inputs(P, *K7_INPUTS))
+        got = ft.field_tail_cuda(h1, sh, *ws)
+        torch.cuda.synchronize()
+        err = k7_error(got, ft.field_tail_plain(h1, sh, *ws))
+        err64 = k7_error(got, ft.field_tail_plain(h1, sh, *ws,
+                                                  acc=torch.float64))
+        if not (err <= K7_TOL and err64 <= K7_TOL):
+            raise AssertionError(f"K7 disagrees at P={P}: {err} against "
+                                 f"the f32 plain version, {err64} against "
+                                 f"float64 sums")
+        del got
+        ms = time_ms(lambda: ft.field_tail_cuda(h1, sh, *ws))
+        dev_ms = device_ms(lambda: ft.field_tail_cuda(h1, sh, *ws),
+                           (KERNEL_NAMES["K7"],))
+        plain_ms = time_ms(lambda: ft.field_tail_plain(h1, sh, *ws))
+        nbytes = P * (64 * 4 + 16 * 4 + 4 + 12) + sum(w.numel() for w in ws) * 4
+        flops = 2.0 * P * sum(w.shape[0] * w.shape[1] for w in ws)
+        bound_ms, bound_by = bound(nbytes, flops, 0.0)
+        out[P] = dict(max_abs_err=err, tol_abs=K7_TOL,
+                      max_abs_err_vs_float64_sums=err64, ms=ms,
+                      device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
+                      bytes=nbytes, flops=flops)
+        del h1, sh
+        torch.cuda.empty_cache()
+    return dict(out[K7_N], at_train_pool=out[POOL_N])
 
 
 def check_bwd(torch, ngp, key):
@@ -227,6 +243,7 @@ def check_bwd(torch, ngp, key):
     fused with the per-level scatter-add (F=2), by `key`, at 262,144
     random points of the model's grid."""
     from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import time_ms
     from ngp_pl_torch.ops import hash_encoding as he
 
     spec = ngp.spec
@@ -262,46 +279,62 @@ def check_bwd(torch, ngp, key):
 
 
 def check_k8(torch, ngp):
-    """K8 at 262,144 samples: dh1 and the four weight gradients."""
+    """K8 at 262,144 samples and at the train pool's 393,216: dh1 and the
+    four weight gradients against both plain versions (f32 sums, float64
+    sums), times and bound at both."""
+    from ngp_pl_torch.benchmarking.field_tail_gates import (K8_INPUTS,
+                                                            tail_inputs)
     from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
     from ngp_pl_torch.ops import field_tail as ft
-    from ngp_pl_torch.ops.sh import sh_encode
 
-    P = 262144
-    g = torch.Generator().manual_seed(4)
-    h1 = (torch.randn((P, 64), generator=g) * 2.0).cuda()
-    h1[:64] *= 20.0                      # saturate the +/-15 clamp
-    d = torch.randn((P, 3), generator=g)
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    sh = sh_encode((d + 1.0) * 0.5).cuda()
-    g_sigma = (torch.randn((P,), generator=g) * 1e-3).cuda()
-    g_rgb = (torch.randn((P, 3), generator=g) * 1e-3).cuda()
     ws = [ngp.sigma_mlp[1].detach()] + [w.detach() for w in ngp.rgb_mlp]
-    args = (h1, sh, g_sigma, g_rgb, *ws)
-    got = ft.field_tail_bwd_cuda(*args)
-    torch.cuda.synchronize()
-    ref = ft.field_tail_bwd_plain(*args)
     names = ("dh1", "dW2", "dWr1", "dWr2", "dWr3")
-    abs_err = {n: float((a - b).abs().max()) for n, a, b in zip(names, got, ref)}
-    rel_err = {n: abs_err[n] / float(b.abs().max()) for n, b in zip(names, ref)}
-    if not all(v <= K8_TOL for v in rel_err.values()):
-        raise AssertionError(f"K8 disagrees: {rel_err}")
-    del got, ref
-    ms = time_ms(lambda: ft.field_tail_bwd_cuda(*args))
-    plain_ms = time_ms(lambda: ft.field_tail_bwd_plain(*args))
-    nbytes = (P * (64 + 16 + 1 + 3 + 64) * 4
-              + 2 * sum(w.numel() for w in ws) * 4)
-    # multiply-adds per sample: the forward (7,360), the backward through
-    # the layers (192 + 4,096 + 1,024 + 1,024) and the weight gradients
-    # (7,360), all bf16 operands
-    macs = 2 * sum(w.shape[0] * w.shape[1] for w in ws) + 192 + 4096 + 2048
-    flops = 2.0 * P * macs
-    bound_ms, bound_by = bound(nbytes, flops, 0.0)
-    return dict(max_abs_err=max(abs_err.values()), abs_err=abs_err,
-                max_rel_err=max(rel_err.values()), rel_err=rel_err,
-                tol_rel=K8_TOL, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, n=P, bytes=nbytes,
-                flops=flops)
+    out = {}
+    for P in (K8_N, POOL_N):
+        args = (*(t.cuda() for t in tail_inputs(P, *K8_INPUTS, grads=True)),
+                *ws)
+        got = ft.field_tail_bwd_cuda(*args)
+        torch.cuda.synchronize()
+
+        def errs(ref):
+            return ({n: float((a - b).abs().max())
+                     for n, a, b in zip(names, got, ref)},
+                    {n: float((a - b).abs().max() / b.abs().max())
+                     for n, a, b in zip(names, got, ref)})
+
+        abs_err, rel_err = errs(ft.field_tail_bwd_plain(*args))
+        _, rel64 = errs(ft.field_tail_bwd_plain(*args, acc=torch.float64))
+        if not (max(rel_err.values()) <= K8_F32_TOL
+                and max(rel64.values()) <= K8_TOL):
+            raise AssertionError(f"K8 disagrees at P={P}: {rel_err} against "
+                                 f"the f32 plain version, {rel64} against "
+                                 f"float64 sums")
+        del got
+        ms = time_ms(lambda: ft.field_tail_bwd_cuda(*args))
+        dev_ms = device_ms(lambda: ft.field_tail_bwd_cuda(*args),
+                           (KERNEL_NAMES["K8"], "field_tail_bwd_reduce"))
+        plain_ms = time_ms(lambda: ft.field_tail_bwd_plain(*args))
+        nbytes = (P * (64 + 16 + 1 + 3 + 64) * 4
+                  + 2 * sum(w.numel() for w in ws) * 4)
+        # multiply-adds per sample: the forward (7,360), the backward
+        # through the layers (192 + 4,096 + 1,024 + 1,024) and the weight
+        # gradients (7,360), all bf16 operands
+        macs = 2 * sum(w.shape[0] * w.shape[1] for w in ws) + 192 + 4096 + 2048
+        flops = 2.0 * P * macs
+        bound_ms, bound_by = bound(nbytes, flops, 0.0)
+        out[P] = dict(max_abs_err=max(abs_err.values()), abs_err=abs_err,
+                      max_rel_err=max(rel_err.values()), rel_err=rel_err,
+                      tol_rel=K8_F32_TOL,
+                      max_rel_err_vs_float64_sums=max(rel64.values()),
+                      rel_err_vs_float64_sums=rel64,
+                      tol_rel_vs_float64_sums=K8_TOL, ms=ms,
+                      device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
+                      bytes=nbytes, flops=flops)
+        del args
+        torch.cuda.empty_cache()
+    return dict(out[K8_N], at_train_pool=out[POOL_N])
 
 
 def check_k6(torch):
@@ -309,6 +342,7 @@ def check_k6(torch):
     version and timed against `Tensor.index_add_`, the one PyTorch call
     that computes the same function."""
     from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import time_ms
     from ngp_pl_torch.ops import scatter_rows as sr
 
     P, W, R = 262144, 128, 16384
@@ -343,6 +377,7 @@ def check_k9(torch):
     time of the PyTorch calls that compute its function (the sum over
     levels of the rows as f32, and ft2's zeros)."""
     from ngp_pl_torch.benchmarking import micro_fwd as mf
+    from ngp_pl_torch.benchmarking.timing import time_ms
     from ngp_pl_torch.ops import encode_ablations as ea
 
     n = mf.N_BENCH
@@ -471,6 +506,8 @@ def profile_frame(torch, res, tcfg, top: int = 12):
     dirs = torch.from_numpy(ds.directions).cuda()
     pose = torch.from_numpy(ds.poses[0]).cuda()
     renderer = RoundRenderer(res.ngp, tcfg.render_config())
+    counters = _counters()
+    before = {k: c.launches for k, c in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -479,8 +516,9 @@ def profile_frame(torch, res, tcfg, top: int = 12):
         wall = time.perf_counter() - t0
     kernels = _device_kernels(prof)
     busy = sum(k[0] for k in kernels)
-    k1 = sum(k[0] for k in kernels if "hash_encode_fwd_kernel" in k[2])
-    k7 = sum(k[0] for k in kernels if "field_tail_fwd_kernel" in k[2])
+    k1 = sum(k[0] for k in kernels if KERNEL_NAMES["K1"] in k[2])
+    k7 = sum(k[0] for k in kernels if KERNEL_NAMES["K7"] in k[2])
+    _timed_where_launched(counters, before, {"K1": k1, "K7": k7})
     frame_ms = 1e3 / res.fps
     return dict(
         frame_ms_unprofiled=frame_ms, frame_ms_profiled=wall * 1e3,
@@ -489,6 +527,25 @@ def profile_frame(torch, res, tcfg, top: int = 12):
         rounds=out["rounds"], samples=out["total_samples"],
         top=[{"ms": ms, "count": n, "name": name[:90]}
              for ms, n, name in kernels[:top]])
+
+
+# The device kernel each hand kernel's wrapper launches, as the profiler
+# names it (a part of the name; K1 and K3, K2+K5 and K4 are instances of
+# one template each, and a path runs one of them).
+KERNEL_NAMES = {"K1": "hash_encode_fwd_kernel", "K3": "hash_encode_fwd_kernel",
+                "K7": "field_tail_fwd_mma", "K2+K5": "hash_encode_bwd_kernel",
+                "K4": "hash_encode_bwd_kernel", "K8": "field_tail_bwd_mma"}
+
+
+def _timed_where_launched(counters, before, device_ms) -> None:
+    """A profiled window's device time by kernel must be positive for each
+    kernel that launched in it: a renamed kernel cannot read 0 ms."""
+    for key, ms in device_ms.items():
+        launched = counters[key].launches - before[key]
+        if launched and not ms > 0.0:
+            raise AssertionError(f"{key} launched {launched} times but the "
+                                 f"profile matched no device time to "
+                                 f"{KERNEL_NAMES[key]!r}")
 
 
 def _sync(torch, dev) -> None:
@@ -816,7 +873,8 @@ def profile_block(torch, system, block_ms):
     kernel's name tells which of them ran."""
     from torch.profiler import ProfilerActivity, profile
 
-    fwd, bwd, tail, tail_bwd = path_kernels(system.cfg)
+    counters = _counters()
+    before = {k: c.launches for k, c in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -826,12 +884,10 @@ def profile_block(torch, system, block_ms):
         wall = time.perf_counter() - t0
     kernels = _device_kernels(prof)
     busy = sum(k[0] for k in kernels)
-    parts = {name: sum(k[0] for k in kernels if any(s in k[2] for s in subs))
-             for name, subs in ((fwd, ("hash_encode_fwd_kernel",)),
-                                (tail, ("field_tail_fwd_kernel",)),
-                                (bwd, ("hash_encode_bwd_kernel",)),
-                                (tail_bwd, ("field_tail_bwd_kernel",
-                                            "field_tail_bwd_reduce")))}
+    parts = {key: sum(k[0] for k in kernels if KERNEL_NAMES[key] in k[2]
+                      or (key == "K8" and "field_tail_bwd_reduce" in k[2]))
+             for key in path_kernels(system.cfg)}
+    _timed_where_launched(counters, before, parts)
     return dict(block_ms_unprofiled=block_ms, block_ms_profiled=wall * 1e3,
                 device_busy_ms=busy, idle_share=1.0 - busy / block_ms,
                 kernels_ms=parts, other_kernels_ms=busy - sum(parts.values()),
@@ -1049,7 +1105,11 @@ def main() -> int:
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
             "library_note": ("Tensor.index_add_" if "library_ms" in k
-                             else no_library)})
+                             else no_library),
+            **{f: k[f] for f in (
+                "device_ms", "bound_share", "at_train_pool",
+                "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
+                "tol_rel_vs_float64_sums") if f in k}})
     # K9 on its own path, the bench: times, bounds and launches from the
     # `micro_fwd` run, errors and plain times from the kernel checks
     bench = "benchmarking/micro_pallas_fwd.py"

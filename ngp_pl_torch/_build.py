@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface.  It is compiled by nvcc for
 Hopper (`sm_90a`) into its own shared library and loaded with ctypes.  All
 missing libraries are built at once, with one nvcc process per source.  A
 library is built at first use into `build/kernels/` (listed in .gitignore)
-and reused while its source and flags are unchanged: the file name carries
-a hash of both.  A failed build raises; there is no fallback.
+and reused while its source, the headers that source includes from
+`csrc/`, and the flags are unchanged: the file name carries a hash of them.
+A failed build raises; there is no fallback.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check` turns a
 nonzero code into an exception.
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ KERNELS = ("hash_encode_fwd", "field_tail_fwd", "hash_encode_bwd",
            "field_tail_bwd", "scatter_rows", "encode_ablations")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -41,8 +44,24 @@ def _nvcc() -> str:
                        "built (set CUDA_HOME or put nvcc on PATH)")
 
 
+def sources(name: str) -> list:
+    """`csrc/<name>.cu` and the headers it includes from `csrc/` with
+    `#include "..."`, transitively, in the order first met."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for m in _INCLUDE.finditer(path.read_text()):
+            todo.append(CSRC / m.group(1))
+    return out
+
+
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

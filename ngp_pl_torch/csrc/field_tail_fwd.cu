@@ -16,146 +16,126 @@
 // The TPU's transposed (16, P) / (8, P) layouts only avoided lane padding.
 //
 // What bounds it on an H100: it must move 336 B per sample (h1 256, sh 64,
-// outputs 16) and do 15,360 FLOP per sample, so at bf16 tensor-core rates it
-// is bound by bytes.  This simple design is bound by operations instead: one
-// thread per sample runs the 7,680 multiply-adds on the f32 pipes, with the
-// weights (bf16-rounded, kept as f32 so a float4 shared-memory broadcast
-// feeds four FMAs) in 29 KB of shared memory.  Wr2 is stored transposed so
-// the 64 -> 64 layer also reads float4s.  Moving the three hidden layers to
-// mma/wgmma over tiles of samples is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// outputs 16) and do 15,360 FLOP per sample: 46 FLOP per byte, far below
+// the ~295 at which the bf16 tensor cores would be the limit, so bytes
+// bound it.  The design keeps the card's memory busy and the math off the
+// f32 pipes:
+// - the four layers run on the tensor cores (field_tail_mma.cuh: 60
+//   mma.sync.m16n8k16 per 16 samples, activations in registers);
+// - the weights are packed once per weight update into bf16 B fragments
+//   (15 KB) by the wrapper and copied into shared memory once per block;
+// - a persistent grid of two blocks of 8 warps per SM: each warp walks
+//   groups of 16 samples with its own two-stage cp.async ring (5 KB a
+//   stage), so the next group's 5 KB are in flight while it computes, about
+//   80 KB per SM;
+// - sigma and rgb go through 256 B of shared memory per warp and leave as
+//   16-byte coalesced stores.
+// On an H100 it runs at 84% of its bytes bound at 1,048,576 samples
+// (PERF.md).
+#include "field_tail_mma.cuh"
 
 namespace {
 
-constexpr int kHid = 64;
-constexpr int kGeo = 16;
-constexpr int kSh = 16;
-constexpr int kBlock = 128;
+using namespace ft;
 
-struct Weights {
-  float w2[kHid * kGeo];              // (64, 16)
-  float wr1[(kSh + kGeo) * kHid];     // (32, 64)
-  float wr2t[kHid * kHid];            // Wr2 transposed: wr2t[j][i] = Wr2[i][j]
-  float wr3[kHid * 3];                // (64, 3)
-};
+constexpr int kStages = 2;
+constexpr int kGroup = 16;                            // samples per warp step
+constexpr int kStageFloats = kGroup * (kHid + kSh);   // 1,280 f32 = 5 KB
+constexpr int kOutFloats = kGroup * 4;                // sigma 16, rgb 48
+constexpr size_t kSmem =
+    kFragsFwd * kFragBytes +
+    (size_t)kWarps * (kStages * kStageFloats + kOutFloats) * sizeof(float);
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+__global__ void __launch_bounds__(kThreads, 2)
+field_tail_fwd_mma(const float* __restrict__ h1, const float* __restrict__ sh,
+                   const uint4* __restrict__ wpack, float* __restrict__ sigma,
+                   float* __restrict__ rgb, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* wf = reinterpret_cast<uint2*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ring = reinterpret_cast<float*>(smem + kFragsFwd * kFragBytes) +
+                warp * (kStages * kStageFloats + kOutFloats);
+  float* out = ring + kStages * kStageFloats;
 
-__global__ void __launch_bounds__(kBlock)
-field_tail_fwd_kernel(const float* __restrict__ h1, const float* __restrict__ sh,
-                      const float* __restrict__ w2, const float* __restrict__ wr1,
-                      const float* __restrict__ wr2, const float* __restrict__ wr3,
-                      float* __restrict__ sigma, float* __restrict__ rgb, int n) {
-  __shared__ __align__(16) Weights s;
-  for (int k = threadIdx.x; k < kHid * kGeo; k += blockDim.x)
-    s.w2[k] = bf16_round(w2[k]);
-  for (int k = threadIdx.x; k < (kSh + kGeo) * kHid; k += blockDim.x)
-    s.wr1[k] = bf16_round(wr1[k]);
-  for (int k = threadIdx.x; k < kHid * kHid; k += blockDim.x)
-    s.wr2t[(k % kHid) * kHid + k / kHid] = bf16_round(wr2[k]);
-  for (int k = threadIdx.x; k < kHid * 3; k += blockDim.x)
-    s.wr3[k] = bf16_round(wr3[k]);
+  const int n_groups = (n + kGroup - 1) / kGroup;
+  const int stride = gridDim.x * kWarps;
+  int grp = blockIdx.x * kWarps + warp;
+  if (grp < n_groups) {
+    load_rows_async(ring, ring + kGroup * kHid, h1, sh, grp * kGroup, kGroup,
+                    n, lane, 32);
+  }
+  cp_async_commit();
+  copy_frags(reinterpret_cast<uint4*>(smem), wpack,
+             kFragsFwd * kFragBytes / 16, threadIdx.x, kThreads);
   __syncthreads();
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int g = lane >> 2, t = lane & 3;
+  for (int it = 0; grp < n_groups; grp += stride, ++it) {
+    const int nxt = grp + stride;
+    if (nxt < n_groups) {
+      float* s = ring + ((it + 1) % kStages) * kStageFloats;
+      load_rows_async(s, s + kGroup * kHid, h1, sh, nxt * kGroup, kGroup, n,
+                      lane, 32);
+    }
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
 
-  // sigma layer 2: h = bf16(relu(h1)) @ W2
-  float h[kGeo];
-#pragma unroll
-  for (int k = 0; k < kGeo; ++k) h[k] = 0.f;
-  const float4* h1v = reinterpret_cast<const float4*>(h1 + (size_t)i * kHid);
-#pragma unroll 4
-  for (int q = 0; q < kHid / 4; ++q) {
-    const float4 v = h1v[q];
-    const float xv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float xb = bf16_round(fmaxf(xv[e], 0.f));
-      const float* wrow = s.w2 + (4 * q + e) * kGeo;
-#pragma unroll
-      for (int k = 0; k < kGeo; k += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(wrow + k);
-        h[k] = fmaf(xb, w.x, h[k]);
-        h[k + 1] = fmaf(xb, w.y, h[k + 1]);
-        h[k + 2] = fmaf(xb, w.z, h[k + 2]);
-        h[k + 3] = fmaf(xb, w.w, h[k + 3]);
+    const float* s = ring + (it % kStages) * kStageFloats;
+    TailFwd f;
+    tail_forward(s, s + kGroup * kHid, 0, wf, lane, f);
+    if (t == 0) {
+      out[g] = expf(fminf(fmaxf(f.h[0][0], -30.f), 30.f));
+      out[g + 8] = expf(fminf(fmaxf(f.h[0][2], -30.f), 30.f));
+    }
+    if (t < 2) {
+      // this lane's rgb columns: 2t, 2t + 1 (t = 1: column 2 only)
+      float* o = out + kGroup;
+      o[g * 3 + 2 * t] = sigmoid(f.z3[0]);
+      o[(g + 8) * 3 + 2 * t] = sigmoid(f.z3[2]);
+      if (t == 0) {
+        o[g * 3 + 1] = sigmoid(f.z3[1]);
+        o[(g + 8) * 3 + 1] = sigmoid(f.z3[3]);
       }
     }
-  }
-  sigma[i] = expf(fminf(fmaxf(h[0], -30.f), 30.f));
-
-  // rgb layer 1: z1 = bf16(sh) @ Wr1[:16] + bf16(h) @ Wr1[16:]
-  float r1[kHid];
-#pragma unroll
-  for (int j = 0; j < kHid; ++j) r1[j] = 0.f;
-  const float4* shv = reinterpret_cast<const float4*>(sh + (size_t)i * kSh);
-#pragma unroll
-  for (int q = 0; q < (kSh + kGeo) / 4; ++q) {
-    float in[4];
-    if (q < kSh / 4) {
-      const float4 v = shv[q];
-      in[0] = v.x; in[1] = v.y; in[2] = v.z; in[3] = v.w;
+    __syncwarp();
+    const int s0 = grp * kGroup;
+    if (s0 + kGroup <= n) {
+      // lanes 0-3: 16 sigmas; lanes 4-15: 48 rgb floats, 16 bytes each
+      if (lane < 4) {
+        reinterpret_cast<float4*>(sigma + s0)[lane] =
+            reinterpret_cast<const float4*>(out)[lane];
+      } else if (lane < 16) {
+        reinterpret_cast<float4*>(rgb + (size_t)s0 * 3)[lane - 4] =
+            reinterpret_cast<const float4*>(out + kGroup)[lane - 4];
+      }
     } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) in[e] = h[4 * q - kSh + e];
+      const int valid = n - s0;
+      if (lane < valid) sigma[s0 + lane] = out[lane];
+      for (int q = lane; q < valid * 3; q += 32)
+        rgb[(size_t)s0 * 3 + q] = out[kGroup + q];
     }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float ib = bf16_round(in[e]);
-      const float* wrow = s.wr1 + (4 * q + e) * kHid;
-#pragma unroll
-      for (int j = 0; j < kHid; j += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(wrow + j);
-        r1[j] = fmaf(ib, w.x, r1[j]);
-        r1[j + 1] = fmaf(ib, w.y, r1[j + 1]);
-        r1[j + 2] = fmaf(ib, w.z, r1[j + 2]);
-        r1[j + 3] = fmaf(ib, w.w, r1[j + 3]);
-      }
-    }
+    __syncwarp();
   }
-#pragma unroll
-  for (int j = 0; j < kHid; ++j) r1[j] = bf16_round(fmaxf(r1[j], 0.f));
-
-  // rgb layers 2 and 3, one hidden unit at a time: z3 += bf16(relu(z2_j)) Wr3[j]
-  float z3[3] = {0.f, 0.f, 0.f};
-  for (int j = 0; j < kHid; ++j) {
-    const float* wcol = s.wr2t + j * kHid;
-    float z = 0.f;
-#pragma unroll
-    for (int k = 0; k < kHid; k += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(wcol + k);
-      z = fmaf(r1[k], w.x, z);
-      z = fmaf(r1[k + 1], w.y, z);
-      z = fmaf(r1[k + 2], w.z, z);
-      z = fmaf(r1[k + 3], w.w, z);
-    }
-    const float r2 = bf16_round(fmaxf(z, 0.f));
-    z3[0] = fmaf(r2, s.wr3[j * 3], z3[0]);
-    z3[1] = fmaf(r2, s.wr3[j * 3 + 1], z3[1]);
-    z3[2] = fmaf(r2, s.wr3[j * 3 + 2], z3[2]);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    rgb[(size_t)i * 3 + c] = 1.f / (1.f + expf(-z3[c]));
-  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
 
-// h1 (n, 64), sh (n, 16), w2 (64, 16), wr1 (32, 64), wr2 (64, 64), wr3 (64, 3),
-// all f32 and contiguous -> sigma (n,), rgb (n, 3) f32.
-// Returns cudaGetLastError().
-extern "C" int field_tail_fwd(const void* h1, const void* sh, const void* w2,
-                              const void* wr1, const void* wr2, const void* wr3,
-                              void* sigma, void* rgb, int n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const int grid = (n + kBlock - 1) / kBlock;
-  field_tail_fwd_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
-      (const float*)h1, (const float*)sh, (const float*)w2, (const float*)wr1,
-      (const float*)wr2, (const float*)wr3, (float*)sigma, (float*)rgb, n);
+// h1 (n, 64), sh (n, 16) f32, contiguous and 16-byte aligned; wpack the
+// bf16 B fragments of `pack_weights` (at least the 60 forward ones);
+// -> sigma (n,), rgb (n, 3) f32, 16-byte aligned.  n_blocks blocks of 256
+// threads walk the groups of 16 samples.  Returns cudaGetLastError().
+extern "C" int field_tail_fwd(const void* h1, const void* sh,
+                              const void* wpack, void* sigma, void* rgb,
+                              int n, int n_blocks, void* stream) {
+  if (n < 1 || n_blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      field_tail_fwd_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  field_tail_fwd_mma<<<n_blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
+      (const float*)h1, (const float*)sh, (const uint4*)wpack, (float*)sigma,
+      (float*)rgb, n);
   return (int)cudaGetLastError();
 }
