@@ -11,7 +11,10 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            events, the plain version's time and the least time the card
            could take (bytes over 3.35 TB/s or operations over peak rate);
            K1 and K2+K5 at 262,144 random points of the flagship grid, K3
-           and K4 at 262,144 of the L16F2 grid, K7 at 1,048,576 samples,
+           and K4 at 262,144 of the L16F2 grid (K2+K5 and K4 also by device
+           time, the table gradient's zero fill apart, and again on the
+           input of a train step after each fit, see below), K7 at
+           1,048,576 samples,
            K8 at 262,144 (both also against their plain versions with
            float64 sums, and at the train pool's 393,216), K6 at 262,144
            rows of 128 into 16,384 (also timed against
@@ -47,13 +50,16 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            samples/ray, rounds, PSNR
   profile  one more 16-step block under torch.profiler: K1, K7, K2+K5, K8,
            the PyTorch kernels around them and the device's idle share
+  kernels  (input train_step) K2+K5 on the (x, g, w1) its wrapper receives
+           in one more train step: the 393,216-slot pool, ray by ray, zero
+           rows on unused slots; checked and timed as at random points
 Then the same for the reference's own geometry, L16F2 (L=16, F=2, T=2^19,
 the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
 and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
 each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
 train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
 train_reference_l16f2 from the trained state on 2 batches,
-trained_render_l16f2 and a profiled block.
+trained_render_l16f2, a profiled block and K4 on a train step's input.
 Then the card line, the kernels line (the seven kernels of the paths and
 the six K9 variants, with their launches on each path) and, last, the
 result line.  Without a CUDA device,
@@ -242,17 +248,26 @@ def check_bwd(torch, ngp, key):
     """The table-gradient kernel, K2 fused with the K5 scatter (F=4) or K4
     fused with the per-level scatter-add (F=2), by `key`, at 262,144
     random points of the model's grid."""
+    from ngp_pl_torch.benchmarking.table_grad_inputs import random_input
+
+    x, gr = random_input()
+    return _bwd_record(torch, key, x, gr, ngp.sigma_mlp[0].detach(),
+                       ngp.spec)
+
+
+def _bwd_record(torch, key, x, gr, w1, spec):
+    """The table-gradient kernel `key` on (x, gr, w1) against its plain
+    version on the same inputs (K2_TOL of max); the wrapper's event time,
+    the device time of the whole call and, from the same profile, of the
+    kernel and of the gradient's zero fill apart, the plain version's time
+    and the bound, whose share is of the whole call: the bound counts the
+    gradient written once, which is the fill's write."""
     from ngp_pl_torch.benchmarking.roofline import bound
-    from ngp_pl_torch.benchmarking.timing import time_ms
+    from ngp_pl_torch.benchmarking.timing import device_split_ms, time_ms
     from ngp_pl_torch.ops import hash_encoding as he
 
-    spec = ngp.spec
     wrapper = _counters()[key]
-    N = 262144
-    g = torch.Generator().manual_seed(3)
-    x = torch.rand((N, 3), generator=g).cuda()
-    gr = (torch.randn((N, 64), generator=g) * 1e-3).cuda()
-    w1 = ngp.sigma_mlp[0].detach()
+    N = x.shape[0]
     d_k = wrapper(x, gr, w1, spec)
     torch.cuda.synchronize()
     d_p = he.hash_encode_bwd_plain(x, gr, w1, spec)
@@ -261,7 +276,9 @@ def check_bwd(torch, ngp, key):
     if not err <= K2_TOL * scale:
         raise AssertionError(f"{key} disagrees: {err} (scale {scale})")
     del d_k, d_p
-    ms = time_ms(lambda: wrapper(x, gr, w1, spec))
+    call = lambda: wrapper(x, gr, w1, spec)
+    ms = time_ms(call)
+    dev_ms, call_dev_ms = device_split_ms(call, (KERNEL_NAMES[key],))
     plain_ms = time_ms(lambda: he.hash_encode_bwd_plain(x, gr, w1, spec))
     # bytes: x and g in, w1, the f32 table gradient out (every row)
     nbytes = (N * 12 + N * 64 * 4 + w1.numel() * 4
@@ -273,9 +290,23 @@ def check_bwd(torch, ngp, key):
     rest = N * spec.n_levels * (8 * 2 + 8 * spec.n_features * 2)
     bound_ms, bound_by = bound(nbytes, contraction, rest)
     return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K2_TOL,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, n=N, bytes=nbytes,
-                flops=contraction + rest)
+                ms=ms, device_ms=dev_ms, fill_ms=call_dev_ms - dev_ms,
+                call_device_ms=call_dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / call_dev_ms, n=N,
+                nonzero_rows=int((gr != 0).any(dim=1).sum()),
+                bytes=nbytes, flops=contraction + rest)
+
+
+def check_bwd_train(torch, system, key):
+    """The table-gradient kernel `key` on the (x, g, w1) that
+    `hash_encode_bwd` receives in the system's next train step: the CSR
+    pool's positions and gradients, ray by ray, zero rows on its unused
+    slots."""
+    from ngp_pl_torch.benchmarking.table_grad_inputs import capture
+
+    x, gr, w1 = capture(system)
+    return _bwd_record(torch, key, x, gr, w1, system.ngp.spec)
 
 
 def check_k8(torch, ngp):
@@ -573,30 +604,6 @@ def path_kernels(cfg):
     if cfg.n_features_per_level == 2:
         return ("K3", "K4", "K7", "K8")
     return ("K1", "K2+K5", "K7", "K8")
-
-
-def train_config(**kw):
-    """The flagship's train configuration on bench.py's scene (batch
-    8192, the 30-epoch cosine); `kw` changes the geometry."""
-    from ngp_pl_torch.config import TrainConfig
-
-    return TrainConfig(dataset_name="synthetic", batch_size=8192,
-                       num_epochs=30, **kw)
-
-
-def flagship_system(torch, dev="cuda", tcfg=None, img_size=96, n_train=8):
-    """A NeRFSystem of the flagship model (or of `tcfg`) on bench.py's scene
-    (8 views at 96x96, batch 8192), seeded."""
-    from ngp_pl_torch.datasets.synthetic import SyntheticDataset
-    from ngp_pl_torch.training.system import NeRFSystem
-
-    tcfg = tcfg or train_config()
-    return NeRFSystem(
-        tcfg, device=dev,
-        train_dataset=SyntheticDataset(split="train", img_size=img_size,
-                                       n_train=n_train, device=dev),
-        test_dataset=SyntheticDataset(split="test", img_size=img_size,
-                                      n_test=1, device=dev))
 
 
 def train_fit(torch, system, steps=TRAIN_STEPS):
@@ -956,8 +963,11 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     `trained_batches`, the trained field's 800x800 render and a profiled
     block.  The kernels named in `alone` are held, each alone, to STEP_TOL
     (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card.  Returns the fit's record."""
-    system = flagship_system(torch, tcfg=tcfg)   # seeded, first refresh
+    on the card.  Then the table-gradient kernel on a train step's input.
+    Returns the fit's record and that kernel's."""
+    from ngp_pl_torch.benchmarking.train_setup import train_system
+
+    system = train_system(tcfg)                  # seeded, first refresh
     system.on_train_start()
     system._refresh_grid(0)
     log({"phase": "train_reference" + suffix, "state": "seeded",
@@ -965,7 +975,7 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
                            alone=alone, alone_tol=STEP_TOL)})
     del system
     torch.cuda.empty_cache()
-    system = flagship_system(torch, tcfg=tcfg)
+    system = train_system(tcfg)
     train = train_fit(torch, system)
     log({"phase": "train" + suffix, "card": card, **train})
     log({"phase": "train_reference" + suffix, "state": "trained",
@@ -976,9 +986,13 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
          **profile_block(torch, system, train["block_ms"])})
+    key = path_kernels(system.cfg)[1]
+    at_step = check_bwd_train(torch, system, key)
+    log({"phase": "kernels", "kernel": key, "input": "train_step" + suffix,
+         "card": card, **at_step})
     del system
     torch.cuda.empty_cache()
-    return train
+    return train, at_step
 
 
 def main() -> int:
@@ -989,6 +1003,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from ngp_pl_torch import _build
+    from ngp_pl_torch.benchmarking.train_setup import train_config
     from ngp_pl_torch.device import resolve_device
     from ngp_pl_torch.models.ngp import NGP
 
@@ -1051,8 +1066,9 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
-    launches["train"] = train_path(torch, train_config(), card, "",
-                                   TRAINED_BATCHES)["launches"]
+    train, checks["K2+K5"]["at_train_step"] = train_path(
+        torch, train_config(), card, "", TRAINED_BATCHES)
+    launches["train"] = train["launches"]
 
     # the L16F2 render and train paths, counted the same way
     tcfg = tcfgs["l16f2"]
@@ -1062,10 +1078,11 @@ def main() -> int:
     log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
     del res
     torch.cuda.empty_cache()
-    launches["train_l16f2"] = train_path(
+    train, checks["K4"]["at_train_step"] = train_path(
         torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
         TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
-        alone=("K3", "K4"))["launches"]
+        alone=("K3", "K4"))
+    launches["train_l16f2"] = train["launches"]
 
     no_library = "no single PyTorch call computes this function"
     rows = (("hash_encode_fwd (K1)", "K1", "hash_encode_fwd.cu",
@@ -1107,7 +1124,8 @@ def main() -> int:
             "library_note": ("Tensor.index_add_" if "library_ms" in k
                              else no_library),
             **{f: k[f] for f in (
-                "device_ms", "bound_share", "at_train_pool",
+                "device_ms", "fill_ms", "call_device_ms", "bound_share",
+                "at_train_pool", "at_train_step",
                 "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
                 "tol_rel_vs_float64_sums") if f in k}})
     # K9 on its own path, the bench: times, bounds and launches from the

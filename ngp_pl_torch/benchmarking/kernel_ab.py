@@ -1,0 +1,233 @@
+"""Hand kernels of two trees of this repository, timed in turns on one card:
+the field tail (K7, K8) and the table gradient (K2+K5 at F=4, K4 at F=2).
+
+    mkdir -p build/parent
+    git archive <commit> ngp_pl_torch | tar -x -C build/parent
+    python -m ngp_pl_torch.benchmarking.kernel_ab build/parent .
+
+Each tree runs its own wrappers (`field_tail_cuda` and `field_tail_bwd_cuda`
+of its `ops/field_tail.py`, `hash_encode_bwd_cuda` and
+`hash_encode_bwd_f2_cuda` of its `ops/hash_encoding.py`) in a process of its
+own with the tree first on sys.path; its kernels build into its own
+build/kernels/.  The turns are first, second, second, first.  In each:
+- K7 at 1,048,576 and 393,216 samples and K8 at 262,144 and 393,216 on
+  chip_smoke.py's inputs (`field_tail_gates.tail_inputs`, the seeded
+  flagship weights);
+- K2+K5 and K4, each on two inputs that this process makes once and hands
+  to every turn: 262,144 random points with chip_smoke.py's gradient rows
+  and the seeded model's w1 (`table_grad_inputs.random_input`), and the
+  (x, g, w1) a train step gives the kernel after a 512-step fit of the
+  seeded system on bench.py's scene (`table_grad_inputs.fitted_train_input`,
+  fitted with this process's tree), L8F4 and L16F2.
+Each is timed on two clocks: the median of 20 CUDA-event-timed calls after
+3 warm-ups (the wrapper's host work included), and the device time of every
+kernel, copy and fill a call puts on the card, under torch.profiler (mean
+of 20 calls); for the table gradient also its kernel's device time alone
+(without the zero fill), from the same profile.  Each turn also reads its
+outputs' error against its own tree's f32 plain version.  One JSON line
+per kernel, input and size: both trees' times, `speedup` (the first tree's
+time over the second's, event clock) and `device_speedup`, and the bound.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+SIZES = {"K7": (1048576, 393216), "K8": (262144, 393216)}
+# the table gradient by F, and its kernel's device name
+BWD_KERNEL = {4: "K2+K5", 2: "K4"}
+BWD_DEVICE_NAME = "hash_encode_bwd_kernel"
+
+
+def make_bwd_inputs(path: Path) -> None:
+    """Saves the table gradient's inputs, by name: x, g, w1 on the CPU and
+    the grid's parameters (`make_grid_spec` keywords)."""
+    import torch
+
+    from ngp_pl_torch.benchmarking import table_grad_inputs as tgi
+    from ngp_pl_torch.benchmarking.train_setup import train_config
+    from ngp_pl_torch.models.ngp import NGP
+
+    out = {}
+    for name, kw in (("l8f4", {}), ("l16f2", dict(n_levels=16,
+                                                  n_features=2))):
+        tcfg = train_config(**kw)
+        c = tcfg.ngp_config()
+        grid = dict(n_levels=c.n_levels, n_features=c.n_features_per_level,
+                    log2_hashmap_size=c.log2_hashmap_size,
+                    base_resolution=c.base_resolution,
+                    per_level_scale=c.per_level_scale)
+        model = NGP(c, seed=tcfg.seed, device="cuda")
+        x, g = tgi.random_input(device="cpu")
+        out[f"random/{name}"] = dict(x=x, g=g, grid=grid,
+                                     w1=model.sigma_mlp[0].detach().cpu())
+        del model
+        x, g, w1, _ = tgi.fitted_train_input(tcfg)
+        out[f"train/{name}"] = dict(x=x.cpu(), g=g.cpu(), w1=w1.cpu(),
+                                    grid=grid)
+        torch.cuda.empty_cache()
+    torch.save(out, path)
+
+
+def turn(bwd_path: str) -> dict:
+    """One tree's times and errors, in a process whose sys.path starts with
+    that tree (PYTHONPATH) after this file's own directory."""
+    import torch
+    from field_tail_gates import (K7_INPUTS, K8_INPUTS, k7_error, k8_error,
+                                  model_weights, tail_inputs)
+    from timing import device_ms, device_split_ms, time_ms
+
+    from ngp_pl_torch.ops import field_tail as ft
+    from ngp_pl_torch.ops import hash_encoding as he
+
+    ws = [w.cuda() for w in model_weights()]
+    out = {}
+    for key, sizes in SIZES.items():
+        for P in sizes:
+            if key == "K7":
+                inputs = tail_inputs(P, *K7_INPUTS)
+                plain, kernel, err = (ft.field_tail_plain, ft.field_tail_cuda,
+                                      k7_error)
+            else:
+                inputs = tail_inputs(P, *K8_INPUTS, grads=True)
+                plain, kernel, err = (ft.field_tail_bwd_plain,
+                                      ft.field_tail_bwd_cuda, k8_error)
+            args = (*(t.cuda() for t in inputs), *ws)
+            error = err(kernel(*args), plain(*args))
+            call = lambda: kernel(*args)
+            out[f"{key}/{P}"] = dict(ms=time_ms(call),
+                                     device_ms=device_ms(call),
+                                     err_vs_f32_plain=error)
+            del args
+            torch.cuda.empty_cache()
+    for name, inp in torch.load(bwd_path).items():
+        spec = he.make_grid_spec(**inp["grid"])
+        x, g, w1 = (inp[k].cuda() for k in ("x", "g", "w1"))
+        kernel = (he.hash_encode_bwd_cuda if spec.n_features == 4
+                  else he.hash_encode_bwd_f2_cuda)
+        ref = he.hash_encode_bwd_plain(x, g, w1, spec)
+        error = float((kernel(x, g, w1, spec) - ref).abs().max()
+                      / ref.abs().max())
+        del ref
+        call = lambda: kernel(x, g, w1, spec)
+        kernel_dev, dev = device_split_ms(call, (BWD_DEVICE_NAME,))
+        out[f"{BWD_KERNEL[spec.n_features]}/{name}"] = dict(
+            ms=time_ms(call), device_ms=dev, kernel_device_ms=kernel_dev,
+            err_vs_f32_plain=error)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_work(bwd_path: str) -> dict:
+    """Bytes and operations of each table-gradient input, as chip_smoke.py
+    counts them: x and g in, w1, the f32 table gradient out; the d_wr
+    contraction in bf16, the corner weights, products and additions in
+    f32."""
+    import torch
+
+    from ngp_pl_torch.ops import hash_encoding as he
+
+    work = {}
+    for name, inp in torch.load(bwd_path).items():
+        spec = he.make_grid_spec(**inp["grid"])
+        N = inp["x"].shape[0]
+        nbytes = (N * 12 + N * 64 * 4 + inp["w1"].numel() * 4
+                  + spec.total_rows * spec.row_width * 4)
+        contraction = 2.0 * N * spec.n_levels * spec.n_features * 64
+        rest = N * spec.n_levels * (8 * 2 + 8 * spec.n_features * 2)
+        work[f"{BWD_KERNEL[spec.n_features]}/{name}"] = (nbytes, contraction,
+                                                         float(rest), N)
+    return work
+
+
+def _record(key, t, trees, card, bound_ms, bound_by, **extra) -> dict:
+    clocks = [c for c in ("ms", "device_ms", "kernel_device_ms") if c in t[0]]
+    if "kernel_device_ms" in t[0]:
+        extra["kernel_device_speedup"] = (
+            (t[0]["kernel_device_ms"] + t[3]["kernel_device_ms"])
+            / (t[1]["kernel_device_ms"] + t[2]["kernel_device_ms"]))
+    return dict(kernel=key, card=card, first=str(trees[0]),
+                second=str(trees[1]), **extra,
+                **{f"{which}{clock}": [t[i][clock] for i in idx]
+                   for which, idx in (("first_", (0, 3)), ("second_", (1, 2)))
+                   for clock in clocks},
+                speedup=(t[0]["ms"] + t[3]["ms"]) / (t[1]["ms"] + t[2]["ms"]),
+                device_speedup=((t[0]["device_ms"] + t[3]["device_ms"])
+                                / (t[1]["device_ms"] + t[2]["device_ms"])),
+                err_vs_f32_plain=[r["err_vs_f32_plain"] for r in t],
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def run(first: Path, second: Path, emit=print) -> list:
+    from ngp_pl_torch import _build
+    from ngp_pl_torch.benchmarking.roofline import bound
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    trees = (first.resolve(), second.resolve())
+    scratch = _build.BUILD_DIR.parent
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        bwd_path = os.path.join(tmp, "table_grad_inputs.pt")
+        make_bwd_inputs(Path(bwd_path))
+        turns = []
+        for tree in (trees[0], trees[1], trees[1], trees[0]):
+            env = dict(os.environ, PYTHONPATH=str(tree))
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--turn", bwd_path], cwd=tree, env=env,
+                                  text=True, capture_output=True)
+            if proc.returncode:
+                raise RuntimeError(f"the turn of {tree} failed:\n"
+                                   f"{proc.stderr}")
+            turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        work = _bwd_work(bwd_path)
+    # bytes and multiply-adds as chip_smoke.py counts them (weights 7,360)
+    n_w = 16 * 64 + 32 * 64 + 64 * 64 + 64 * 3
+    records = []
+    for key, sizes in SIZES.items():
+        for P in sizes:
+            t = [r[f"{key}/{P}"] for r in turns]
+            if key == "K7":
+                nbytes, macs = P * (64 * 4 + 16 * 4 + 16) + 4 * n_w, n_w
+            else:
+                nbytes = P * (64 + 16 + 1 + 3 + 64) * 4 + 8 * n_w
+                macs = 2 * n_w + 192 + 4096 + 2048
+            records.append(_record(key, t, trees, card,
+                                   *bound(nbytes, 2.0 * P * macs, 0.0), n=P))
+    for name, (nbytes, contraction, rest, N) in work.items():
+        t = [r[name] for r in turns]
+        key, inp = name.split("/", 1)
+        records.append(_record(key, t, trees, card,
+                               *bound(nbytes, contraction, rest), input=inp,
+                               n=N))
+    for rec in records:
+        emit(json.dumps(rec))
+    return records
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("first", type=Path, nargs="?",
+                    help="root of the tree timed first and last")
+    ap.add_argument("second", type=Path, nargs="?",
+                    help="root of the tree timed in the middle turns")
+    ap.add_argument("--turn", metavar="INPUTS",
+                    help="time the tree on sys.path on these table-gradient "
+                    "inputs (internal)")
+    args = ap.parse_args(argv)
+    if args.turn:
+        print(json.dumps(turn(args.turn)), flush=True)
+        return []
+    if args.first is None or args.second is None:
+        ap.error("give the roots of two trees")
+    return run(args.first, args.second)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,6 +4,7 @@ of its kernels alone, from torch.profiler."""
 from __future__ import annotations
 
 import statistics
+from typing import Tuple
 
 import torch
 
@@ -26,11 +27,9 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names=None, runs: int = 20) -> float:
-    """Mean device time per call of the kernels whose names contain one of
-    `names` (every kernel, copy and fill on the card if None), over `runs`
-    calls under torch.profiler after one warm-up.  Raises if no such
-    kernel ran."""
+def _device_us(fn, runs: int) -> dict:
+    """Device microseconds of each kernel, copy and fill, by name, summed
+    over `runs` calls under torch.profiler after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -40,9 +39,28 @@ def device_ms(fn, names=None, runs: int = 20) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = [ev.self_device_time_total for ev in prof.key_averages()
-          if (ev.device_type == DeviceType.CUDA if names is None
-              else any(n in ev.key for n in names))]
-    if not us:
+    return {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}
+
+
+def _named_ms(us: dict, names, runs: int) -> float:
+    got = [t for key, t in us.items()
+           if names is None or any(n in key for n in names)]
+    if not got:
         raise RuntimeError(f"the profile holds no kernel named {names}")
-    return sum(us) / 1e3 / runs
+    return sum(got) / 1e3 / runs
+
+
+def device_ms(fn, names=None, runs: int = 20) -> float:
+    """Mean device time per call of the kernels whose names contain one of
+    `names` (every kernel, copy and fill on the card if None), over `runs`
+    calls under torch.profiler after one warm-up.  Raises if no such
+    kernel ran."""
+    return _named_ms(_device_us(fn, runs), names, runs)
+
+
+def device_split_ms(fn, names, runs: int = 20) -> Tuple[float, float]:
+    """From one profile as `device_ms`'s: the mean device time per call of
+    the kernels named in `names`, and of all the call's device work."""
+    us = _device_us(fn, runs)
+    return _named_ms(us, names, runs), _named_ms(us, None, runs)

@@ -366,9 +366,13 @@ def hash_encode_bwd_plain(x: torch.Tensor, g: torch.Tensor, w1: torch.Tensor,
 
 def _launch_bwd(wrapper, entry: str, F: int, x, g, w1, spec):
     """x (N, 3) f32, g (N, 64) f32, w1 (L*F, 64) f32 -> d_table
-    (rows, 32*F) f32, zeroed here and accumulated with f32 atomics.
-    Counts the launch on `wrapper`."""
+    (rows, 32*F) f32, zeroed here and accumulated by the kernel's
+    reductions.  Counts the launch on `wrapper`."""
     _check_spec(spec, F)
+    if spec.total_rows * 32 * F >= 2 ** 31:
+        raise ValueError("the kernel indexes the table gradient with 32-bit "
+                         f"ints; {spec.total_rows} rows of {32 * F} floats "
+                         "are too many")
     N, L = x.shape[0], spec.n_levels
     _check_tensors(x.device,
                    ("x", x, torch.float32, (N, 3), 16),
