@@ -11,9 +11,10 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            events, the plain version's time and the least time the card
            could take (bytes over 3.35 TB/s or operations over peak rate);
            K1 and K2+K5 at 262,144 random points of the flagship grid, K3
-           and K4 at 262,144 of the L16F2 grid (K2+K5 and K4 also by device
-           time, the table gradient's zero fill apart, and again on the
-           input of a train step after each fit, see below), K7 at
+           and K4 at 262,144 of the L16F2 grid (all four also by device
+           time, the table gradient's zero fill apart, with the share of
+           the bound, and again on the input of a train step after each
+           fit, see below), K7 at
            1,048,576 samples,
            K8 at 262,144 (both also against their plain versions with
            float64 sums, and at the train pool's 393,216), K6 at 262,144
@@ -50,16 +51,19 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            samples/ray, rounds, PSNR
   profile  one more 16-step block under torch.profiler: K1, K7, K2+K5, K8,
            the PyTorch kernels around them and the device's idle share
-  kernels  (input train_step) K2+K5 on the (x, g, w1) its wrapper receives
-           in one more train step: the 393,216-slot pool, ray by ray, zero
-           rows on unused slots; checked and timed as at random points
+  kernels  (input train_step) K1 and K2+K5 on the (x, g, w1) the table
+           gradient's wrapper receives in one more train step: the
+           393,216-slot pool, ray by ray, zero rows on unused slots; K1 on
+           that x with the fitted table, called with feats as the train
+           step calls it; checked and timed as at random points
 Then the same for the reference's own geometry, L16F2 (L=16, F=2, T=2^19,
 the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
 and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
 each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
 train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
 train_reference_l16f2 from the trained state on 2 batches,
-trained_render_l16f2, a profiled block and K4 on a train step's input.
+trained_render_l16f2, a profiled block and K3 and K4 on a train step's
+input.
 Then the card line, the kernels line (the seven kernels of the paths and
 the six K9 variants, with their launches on each path) and, last, the
 result line.  Without a CUDA device,
@@ -161,41 +165,57 @@ def card_line() -> str:
 
 def check_fwd(torch, ngp, key):
     """K1 (F=4) or K3 (F=2), by `key`, at 262,144 random points of the
-    model's grid, reading the table the encode reads."""
+    model's grid, reading the table the encode reads; timed without feats,
+    as the render path calls it."""
+    from ngp_pl_torch.benchmarking.table_grad_inputs import random_x
+
+    return _fwd_record(torch, key, random_x(), ngp.encode_table(),
+                       ngp.sigma_mlp[0].detach(), ngp.spec, with_feats=False)
+
+
+def _fwd_record(torch, key, x, table, w1, spec, with_feats):
+    """The encode kernel `key` on (x, table, w1) against its plain version
+    on the same inputs, h1 and feats each within K1_TOL of their max; the
+    wrapper's event time and the kernel's device time, called with feats
+    (as `HashEncodeMLP.forward` calls it) when `with_feats`, the plain
+    version's time and the bound (`roofline.k1_work` on this x)."""
     from ngp_pl_torch.benchmarking.roofline import bound, k1_work
-    from ngp_pl_torch.benchmarking.timing import time_ms
+    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
     from ngp_pl_torch.ops import hash_encoding as he
 
-    spec = ngp.spec
     wrapper = _counters()[key]
-    N = 262144
-    g = torch.Generator().manual_seed(1)
-    x = torch.rand((N, 3), generator=g).cuda()
-    table = ngp.encode_table()
-    w1 = ngp.sigma_mlp[0].detach()
-    LF = spec.n_levels * spec.n_features
-    feats_k = torch.empty((N, LF), device="cuda")
-    feats_p = torch.empty((N, LF), device="cuda")
+    N = x.shape[0]
+    feats_k = torch.empty((N, spec.out_dim), device="cuda")
+    feats_p = torch.empty((N, spec.out_dim), device="cuda")
     h_k = wrapper(x, table, w1, spec, feats_k)
     torch.cuda.synchronize()
     h_p = he.hash_encode_fwd_plain(x, table, w1, spec, feats_p)
     scale = float(h_p.abs().max())
     err = float((h_k - h_p).abs().max())
+    feat_scale = float(feats_p.abs().max())
     feat_err = float((feats_k - feats_p).abs().max())
-    if not (err <= K1_TOL * scale and feat_err <= K1_TOL * float(
-            feats_p.abs().max())):
+    if not (err <= K1_TOL * scale and feat_err <= K1_TOL * feat_scale):
         raise AssertionError(f"{key} disagrees: {err} (scale {scale}), "
-                             f"feats {feat_err}")
-    ms = time_ms(lambda: wrapper(x, table, w1, spec))
-    plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, table, w1, spec))
-    # bytes: x in, h1 out, w1 and the table points these samples read
-    nbytes, contraction, interp, points = k1_work(x, spec, table, w1)
+                             f"feats {feat_err} (scale {feat_scale})")
+    del h_k, h_p, feats_p
+    out = feats_k if with_feats else None
+    call = lambda: wrapper(x, table, w1, spec, out)
+    ms = time_ms(call)
+    dev_ms = device_ms(call, (KERNEL_NAMES[key],))
+    plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, table, w1, spec,
+                                                        out))
+    # bytes: x in, h1 (and feats) out, w1 and the table points read
+    nbytes, contraction, interp, points = k1_work(x, spec, table, w1,
+                                                  feats=with_feats)
     bound_ms, bound_by = bound(nbytes, contraction, interp)
-    rows = int(torch.unique(he.slots_local_frac_lm(x, spec)[0]).numel())
+    rows = int(torch.unique(he.slots_local_frac_lm(x.clamp(0.0, 1.0),
+                                                   spec)[0]).numel())
     return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K1_TOL,
-                feats_max_abs_err=feat_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms,
-                bound_by=bound_by, n=N, table_rows_touched=rows,
+                feats_max_abs_err=feat_err,
+                feats_max_rel_err=feat_err / feat_scale, with_feats=with_feats,
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / dev_ms, n=N, table_rows_touched=rows,
                 table_points_touched=points,
                 table_bytes=table.numel() * table.element_size(),
                 bytes=nbytes, flops=contraction + interp)
@@ -296,17 +316,6 @@ def _bwd_record(torch, key, x, gr, w1, spec):
                 bound_share=bound_ms / call_dev_ms, n=N,
                 nonzero_rows=int((gr != 0).any(dim=1).sum()),
                 bytes=nbytes, flops=contraction + rest)
-
-
-def check_bwd_train(torch, system, key):
-    """The table-gradient kernel `key` on the (x, g, w1) that
-    `hash_encode_bwd` receives in the system's next train step: the CSR
-    pool's positions and gradients, ray by ray, zero rows on its unused
-    slots."""
-    from ngp_pl_torch.benchmarking.table_grad_inputs import capture
-
-    x, gr, w1 = capture(system)
-    return _bwd_record(torch, key, x, gr, w1, system.ngp.spec)
 
 
 def check_k8(torch, ngp):
@@ -963,8 +972,12 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     `trained_batches`, the trained field's 800x800 render and a profiled
     block.  The kernels named in `alone` are held, each alone, to STEP_TOL
     (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card.  Then the table-gradient kernel on a train step's input.
-    Returns the fit's record and that kernel's."""
+    on the card.  Then the encode kernel and the table-gradient kernel on
+    the input of one more train step (`table_grad_inputs.capture`: the CSR
+    pool's positions and gradients, ray by ray, zero rows on its unused
+    slots).  Returns the fit's record and the two kernels' records, by
+    key."""
+    from ngp_pl_torch.benchmarking.table_grad_inputs import capture
     from ngp_pl_torch.benchmarking.train_setup import train_system
 
     system = train_system(tcfg)                  # seeded, first refresh
@@ -986,11 +999,16 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
          **profile_block(torch, system, train["block_ms"])})
-    key = path_kernels(system.cfg)[1]
-    at_step = check_bwd_train(torch, system, key)
-    log({"phase": "kernels", "kernel": key, "input": "train_step" + suffix,
-         "card": card, **at_step})
-    del system
+    x, gr, w1 = capture(system)
+    fwd, bwd = path_kernels(system.cfg)[:2]
+    at_step = {
+        fwd: _fwd_record(torch, fwd, x, system.ngp.encode_table(), w1,
+                         system.ngp.spec, with_feats=True),
+        bwd: _bwd_record(torch, bwd, x, gr, w1, system.ngp.spec)}
+    for key, rec in at_step.items():
+        log({"phase": "kernels", "kernel": key, "input": "train_step" + suffix,
+             "card": card, **rec})
+    del system, x, gr, w1
     torch.cuda.empty_cache()
     return train, at_step
 
@@ -1066,8 +1084,10 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
-    train, checks["K2+K5"]["at_train_step"] = train_path(
-        torch, train_config(), card, "", TRAINED_BATCHES)
+    train, at_step = train_path(torch, train_config(), card, "",
+                                TRAINED_BATCHES)
+    for key, rec in at_step.items():
+        checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
 
     # the L16F2 render and train paths, counted the same way
@@ -1078,10 +1098,12 @@ def main() -> int:
     log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
     del res
     torch.cuda.empty_cache()
-    train, checks["K4"]["at_train_step"] = train_path(
+    train, at_step = train_path(
         torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
         TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
         alone=("K3", "K4"))
+    for key, rec in at_step.items():
+        checks[key]["at_train_step"] = rec
     launches["train_l16f2"] = train["launches"]
 
     no_library = "no single PyTorch call computes this function"

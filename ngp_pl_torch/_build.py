@@ -102,6 +102,29 @@ def build(names=KERNELS) -> dict:
     return seconds
 
 
+def compile_sources(sources: dict, out_dir: Path) -> dict:
+    """Compiles CUDA source texts by name, as variants of the port's
+    kernels for measurement, with the port's nvcc flags into
+    `out_dir/lib<name>.so`, all nvcc processes started together.  Returns
+    (loaded library, compiler output) by name; raises if one fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in sources.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
+             str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out = {}
+    for name, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}:\n{text}")
+        out[name] = (ctypes.CDLL(str(out_dir / f"lib{name}.so")), text)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if missing."""

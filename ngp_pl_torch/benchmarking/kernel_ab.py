@@ -1,13 +1,15 @@
 """Hand kernels of two trees of this repository, timed in turns on one card:
-the field tail (K7, K8) and the table gradient (K2+K5 at F=4, K4 at F=2).
+the field tail (K7, K8), the table gradient (K2+K5 at F=4, K4 at F=2) and
+the encode forward (K1 at F=4, K3 at F=2).
 
     mkdir -p build/parent
     git archive <commit> ngp_pl_torch | tar -x -C build/parent
     python -m ngp_pl_torch.benchmarking.kernel_ab build/parent .
 
 Each tree runs its own wrappers (`field_tail_cuda` and `field_tail_bwd_cuda`
-of its `ops/field_tail.py`, `hash_encode_bwd_cuda` and
-`hash_encode_bwd_f2_cuda` of its `ops/hash_encoding.py`) in a process of its
+of its `ops/field_tail.py`, `hash_encode_bwd_cuda`,
+`hash_encode_bwd_f2_cuda`, `hash_encode_fwd_cuda` and
+`hash_encode_fwd_f2_cuda` of its `ops/hash_encoding.py`) in a process of its
 own with the tree first on sys.path; its kernels build into its own
 build/kernels/.  The turns are first, second, second, first.  In each:
 - K7 at 1,048,576 and 393,216 samples and K8 at 262,144 and 393,216 on
@@ -18,13 +20,19 @@ build/kernels/.  The turns are first, second, second, first.  In each:
   and the seeded model's w1 (`table_grad_inputs.random_input`), and the
   (x, g, w1) a train step gives the kernel after a 512-step fit of the
   seeded system on bench.py's scene (`table_grad_inputs.fitted_train_input`,
-  fitted with this process's tree), L8F4 and L16F2.
+  fitted with this process's tree), L8F4 and L16F2;
+- K1 and K3 on the same two kinds of input: chip_smoke.py's 262,144 random
+  points (`table_grad_inputs.random_x`) with the seeded model's table and
+  w1, called without feats as the render path calls it, and the train
+  step's x with the fitted table and w1, called with feats as the train
+  step calls it.
 Each is timed on two clocks: the median of 20 CUDA-event-timed calls after
 3 warm-ups (the wrapper's host work included), and the device time of every
 kernel, copy and fill a call puts on the card, under torch.profiler (mean
 of 20 calls); for the table gradient also its kernel's device time alone
 (without the zero fill), from the same profile.  Each turn also reads its
-outputs' error against its own tree's f32 plain version.  One JSON line
+outputs' error against its own tree's f32 plain version (for K1 and K3 the
+larger of h1's and feats', each of its max).  One JSON line
 per kernel, input and size: both trees' times, `speedup` (the first tree's
 time over the second's, event clock) and `device_speedup`, and the bound.
 """
@@ -39,14 +47,18 @@ import tempfile
 from pathlib import Path
 
 SIZES = {"K7": (1048576, 393216), "K8": (262144, 393216)}
-# the table gradient by F, and its kernel's device name
+# the table gradient and the encode forward by F, and their kernels' device
+# names
 BWD_KERNEL = {4: "K2+K5", 2: "K4"}
 BWD_DEVICE_NAME = "hash_encode_bwd_kernel"
+FWD_KERNEL = {4: "K1", 2: "K3"}
+FWD_DEVICE_NAME = "hash_encode_fwd_kernel"
 
 
-def make_bwd_inputs(path: Path) -> None:
-    """Saves the table gradient's inputs, by name: x, g, w1 on the CPU and
-    the grid's parameters (`make_grid_spec` keywords)."""
+def make_inputs(path: Path) -> None:
+    """Saves the encode kernels' inputs, by name, on the CPU: the table
+    gradient's x, g, w1; the forward's x (`fwd_x`) and the table it reads
+    (`table`); the grid's parameters (`make_grid_spec` keywords)."""
     import torch
 
     from ngp_pl_torch.benchmarking import table_grad_inputs as tgi
@@ -65,16 +77,43 @@ def make_bwd_inputs(path: Path) -> None:
         model = NGP(c, seed=tcfg.seed, device="cuda")
         x, g = tgi.random_input(device="cpu")
         out[f"random/{name}"] = dict(x=x, g=g, grid=grid,
-                                     w1=model.sigma_mlp[0].detach().cpu())
+                                     w1=model.sigma_mlp[0].detach().cpu(),
+                                     fwd_x=tgi.random_x(device="cpu"),
+                                     table=model.encode_table().cpu())
         del model
-        x, g, w1, _ = tgi.fitted_train_input(tcfg)
+        system = tgi.fitted_system(tcfg)
+        x, g, w1 = tgi.capture(system)
         out[f"train/{name}"] = dict(x=x.cpu(), g=g.cpu(), w1=w1.cpu(),
-                                    grid=grid)
+                                    grid=grid, fwd_x=x.cpu(),
+                                    table=system.ngp.encode_table().cpu())
+        del system, x, g, w1
         torch.cuda.empty_cache()
     torch.save(out, path)
 
 
-def turn(bwd_path: str) -> dict:
+def _fwd_turn(he, x, table, w1, spec, with_feats) -> dict:
+    """The encode forward of one tree on one input: times and the larger
+    of h1's and feats' error against the plain version, each of its max."""
+    import torch
+    from timing import device_split_ms, time_ms
+
+    kernel = (he.hash_encode_fwd_cuda if spec.n_features == 4
+              else he.hash_encode_fwd_f2_cuda)
+    fk = torch.empty((x.shape[0], spec.out_dim), device="cuda")
+    fp = torch.empty_like(fk)
+    hk = kernel(x, table, w1, spec, fk)
+    hp = he.hash_encode_fwd_plain(x, table, w1, spec, fp)
+    error = max(float((hk - hp).abs().max() / hp.abs().max()),
+                float((fk - fp).abs().max() / fp.abs().max()))
+    del hk, hp, fp
+    out = fk if with_feats else None
+    call = lambda: kernel(x, table, w1, spec, out)
+    kernel_dev, dev = device_split_ms(call, (FWD_DEVICE_NAME,))
+    return dict(ms=time_ms(call), device_ms=dev, kernel_device_ms=kernel_dev,
+                err_vs_f32_plain=error)
+
+
+def turn(inputs_path: str) -> dict:
     """One tree's times and errors, in a process whose sys.path starts with
     that tree (PYTHONPATH) after this file's own directory."""
     import torch
@@ -105,8 +144,12 @@ def turn(bwd_path: str) -> dict:
                                      err_vs_f32_plain=error)
             del args
             torch.cuda.empty_cache()
-    for name, inp in torch.load(bwd_path).items():
+    for name, inp in torch.load(inputs_path).items():
         spec = he.make_grid_spec(**inp["grid"])
+        out[f"{FWD_KERNEL[spec.n_features]}/{name}"] = _fwd_turn(
+            he, inp["fwd_x"].cuda(), inp["table"].cuda(), inp["w1"].cuda(),
+            spec, with_feats=name.startswith("train/"))
+        torch.cuda.empty_cache()
         x, g, w1 = (inp[k].cuda() for k in ("x", "g", "w1"))
         kernel = (he.hash_encode_bwd_cuda if spec.n_features == 4
                   else he.hash_encode_bwd_f2_cuda)
@@ -123,18 +166,24 @@ def turn(bwd_path: str) -> dict:
     return out
 
 
-def _bwd_work(bwd_path: str) -> dict:
-    """Bytes and operations of each table-gradient input, as chip_smoke.py
-    counts them: x and g in, w1, the f32 table gradient out; the d_wr
-    contraction in bf16, the corner weights, products and additions in
-    f32."""
+def _work(inputs_path: str) -> dict:
+    """Bytes and operations of each input, as chip_smoke.py counts them.
+    The table gradient: x and g in, w1, the f32 table gradient out; the
+    d_wr contraction in bf16, the corner weights, products and additions
+    in f32.  The encode forward: `roofline.k1_work` on its x."""
     import torch
 
+    from ngp_pl_torch.benchmarking.roofline import k1_work
     from ngp_pl_torch.ops import hash_encoding as he
 
     work = {}
-    for name, inp in torch.load(bwd_path).items():
+    for name, inp in torch.load(inputs_path).items():
         spec = he.make_grid_spec(**inp["grid"])
+        nbytes, contraction, interp, _ = k1_work(
+            inp["fwd_x"], spec, inp["table"], inp["w1"],
+            feats=name.startswith("train/"))
+        work[f"{FWD_KERNEL[spec.n_features]}/{name}"] = (
+            nbytes, contraction, interp, inp["fwd_x"].shape[0])
         N = inp["x"].shape[0]
         nbytes = (N * 12 + N * 64 * 4 + inp["w1"].numel() * 4
                   + spec.total_rows * spec.row_width * 4)
@@ -160,7 +209,11 @@ def _record(key, t, trees, card, bound_ms, bound_by, **extra) -> dict:
                 device_speedup=((t[0]["device_ms"] + t[3]["device_ms"])
                                 / (t[1]["device_ms"] + t[2]["device_ms"])),
                 err_vs_f32_plain=[r["err_vs_f32_plain"] for r in t],
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                **{f"{which}bound_share": [bound_ms / t[i]["device_ms"]
+                                           for i in idx]
+                   for which, idx in (("first_", (0, 3)),
+                                      ("second_", (1, 2)))})
 
 
 def run(first: Path, second: Path, emit=print) -> list:
@@ -174,19 +227,19 @@ def run(first: Path, second: Path, emit=print) -> list:
     scratch = _build.BUILD_DIR.parent
     scratch.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
-        bwd_path = os.path.join(tmp, "table_grad_inputs.pt")
-        make_bwd_inputs(Path(bwd_path))
+        inputs_path = os.path.join(tmp, "encode_inputs.pt")
+        make_inputs(Path(inputs_path))
         turns = []
         for tree in (trees[0], trees[1], trees[1], trees[0]):
             env = dict(os.environ, PYTHONPATH=str(tree))
             proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--turn", bwd_path], cwd=tree, env=env,
+                                   "--turn", inputs_path], cwd=tree, env=env,
                                   text=True, capture_output=True)
             if proc.returncode:
                 raise RuntimeError(f"the turn of {tree} failed:\n"
                                    f"{proc.stderr}")
             turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        work = _bwd_work(bwd_path)
+        work = _work(inputs_path)
     # bytes and multiply-adds as chip_smoke.py counts them (weights 7,360)
     n_w = 16 * 64 + 32 * 64 + 64 * 64 + 64 * 3
     records = []
@@ -218,8 +271,8 @@ def main(argv=None) -> list:
     ap.add_argument("second", type=Path, nargs="?",
                     help="root of the tree timed in the middle turns")
     ap.add_argument("--turn", metavar="INPUTS",
-                    help="time the tree on sys.path on these table-gradient "
-                    "inputs (internal)")
+                    help="time the tree on sys.path on these encode inputs "
+                    "(internal)")
     args = ap.parse_args(argv)
     if args.turn:
         print(json.dumps(turn(args.turn)), flush=True)

@@ -21,12 +21,12 @@ def bound(nbytes: float, tensor_flops: float, fp32_flops: float):
 
 
 def k1_work(x: torch.Tensor, spec: he.HashGridSpec, table: torch.Tensor,
-            w1: torch.Tensor):
+            w1: torch.Tensor, feats: bool = False):
     """(bytes, bf16 tensor flops, f32 operations, table points read) of one
-    encode forward (K1 or K3): x in, h1 out, w1, and the table points these
-    samples read, each distinct (row, corner point) once, F values of the
-    table's type each (a row holds 27 points; its pad lanes are never
-    read)."""
+    encode forward (K1 or K3): x in, h1 out (and the (N, L*F) f32 feats
+    when `feats`), w1, and the table points these samples read, each
+    distinct (row, corner point) once, F values of the table's type each (a
+    row holds 27 points; its pad lanes are never read)."""
     N = x.shape[0]
     slot, local, _ = he.slots_local_frac_lm(x, spec)
     corner = torch.tensor([[(c >> 2) & 1, (c >> 1) & 1, c & 1]
@@ -37,7 +37,7 @@ def k1_work(x: torch.Tensor, spec: he.HashGridSpec, table: torch.Tensor,
                               + pt).numel())
     nbytes = (N * 12 + N * 64 * 4
               + points * spec.n_features * table.element_size()
-              + w1.numel() * 4)
+              + w1.numel() * 4 + (N * spec.out_dim * 4 if feats else 0))
     contraction = 2.0 * N * spec.out_dim * 64
     interp = N * spec.n_levels * (8 * spec.n_features * 2 + 8 * 2)
     return nbytes, contraction, float(interp), points

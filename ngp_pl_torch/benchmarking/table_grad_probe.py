@@ -139,7 +139,6 @@ def _build_probe() -> dict:
     """Compiles the rate kernel, the table-gradient kernel at each merge
     threshold of MERGE_SWEEP and, at its own, without its reductions, into
     PROBE_DIR; returns the loaded libraries by name."""
-    PROBE_DIR.mkdir(parents=True, exist_ok=True)
     src = _kernel_source()
     own = MERGE_LINE.search(src).group(0)
     nored = src
@@ -151,20 +150,8 @@ def _build_probe() -> dict:
     for label, r in MERGE_SWEEP.items():
         sources[label] = src.replace(
             own, f"constexpr int kMergeMaxRes = {r};")
-    procs = {}
-    for name, text in sources.items():
-        cu = PROBE_DIR / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             str(PROBE_DIR / f"lib{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-    return {name: ctypes.CDLL(str(PROBE_DIR / f"lib{name}.so"))
-            for name in sources}
+    return {name: lib for name, (lib, _) in
+            _build.compile_sources(sources, PROBE_DIR).items()}
 
 
 def reduction_rates(lib, emit) -> None:
