@@ -18,10 +18,12 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            1,048,576 samples,
            K8 at 262,144 (both also against their plain versions with
            float64 sums, and at the train pool's 393,216), K6 at 262,144
-           rows of 128 into 16,384 (also timed against
-           Tensor.index_add_), and the six K9
-           variants at the K9 bench's 196,608 samples (the plain versions
-           timed there too)
+           rows of 128 into 16,384 and on the JAX scatter bench's runs of
+           74 equal indices (327,680 rows into 512; both by device time,
+           the zero fill apart, and against Tensor.index_add_ on both
+           clocks), and the six K9 variants at the K9 bench's 196,608
+           samples (by device time too, with the share of the bound; the
+           plain versions timed there too)
   micro_fwd  the K9 bench's entry point (ngp_pl_torch.benchmarking.micro_fwd,
            interleaved rows too): one line per row with its time, bound and
            launches, K1 at the same N beside them; every variant must launch
@@ -378,33 +380,56 @@ def check_k8(torch, ngp):
 
 
 def check_k6(torch):
-    """K6 at 262,144 rows of 128 floats into 16,384, against its plain
-    version and timed against `Tensor.index_add_`, the one PyTorch call
-    that computes the same function."""
+    """K6 on two inputs (`bench_inputs`): 262,144 rows of 128 floats into
+    16,384 at uniform random indices, and the JAX scatter bench's
+    ray-coherent runs (74 equal indices in a row, 327,680 rows into 512,
+    the worst contention).  Each against its plain version; the wrapper's
+    event time, the device time of the kernel and of the whole call (the
+    output's zero fill included, which the bound's share counts: the bound
+    counts the output written once), and `Tensor.index_add_` with its zero
+    fill, the one PyTorch call that computes the same function, on both
+    clocks.  The uniform input's record, with the runs' under `at_runs`."""
+    from ngp_pl_torch.benchmarking import bench_inputs as bi
     from ngp_pl_torch.benchmarking.roofline import bound
-    from ngp_pl_torch.benchmarking.timing import time_ms
+    from ngp_pl_torch.benchmarking.timing import device_split_ms, time_ms
     from ngp_pl_torch.ops import scatter_rows as sr
 
-    P, W, R = 262144, 128, 16384
-    g = torch.Generator().manual_seed(5)
-    rows = torch.randn((P, W), generator=g).cuda()
-    idx = torch.randint(0, R, (P,), generator=g).cuda()
-    out_k = sr.scatter_rows_cuda(rows, idx, R)
-    torch.cuda.synchronize()
-    out_p = sr.scatter_rows_plain(rows, idx, R)
-    scale = float(out_p.abs().max())
-    err = float((out_k - out_p).abs().max())
-    if not err <= K6_TOL * scale:
-        raise AssertionError(f"K6 disagrees: {err} (scale {scale})")
-    ms = time_ms(lambda: sr.scatter_rows_cuda(rows, idx, R))
-    plain_ms = time_ms(lambda: sr.scatter_rows_plain(rows, idx, R))
-    out = torch.zeros((R, W), device="cuda")
-    library_ms = time_ms(lambda: out.index_add_(0, idx, rows))
-    nbytes = P * W * 4 + P * 8 + R * W * 4
-    bound_ms, bound_by = bound(nbytes, 0.0, float(P * W))
-    return dict(max_abs_err=err, max_rel_err=err / scale, tol_rel=K6_TOL,
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, n=P, bytes=nbytes)
+    out = {}
+    for name, make in (("uniform", bi.k6_uniform), ("runs", bi.k6_runs)):
+        rows, idx, R = make("cuda")
+        P, W = rows.shape
+        out_k = sr.scatter_rows_cuda(rows, idx, R)
+        torch.cuda.synchronize()
+        out_p = sr.scatter_rows_plain(rows, idx, R)
+        scale = float(out_p.abs().max())
+        err = float((out_k - out_p).abs().max())
+        if not err <= K6_TOL * scale:
+            raise AssertionError(f"K6 disagrees on {name}: {err} "
+                                 f"(scale {scale})")
+        del out_k, out_p
+        call = lambda: sr.scatter_rows_cuda(rows, idx, R)
+        ms = time_ms(call)
+        dev_ms, call_dev_ms = device_split_ms(call, (KERNEL_NAMES["K6"],))
+        plain_ms = time_ms(lambda: sr.scatter_rows_plain(rows, idx, R))
+        lib = lambda: torch.zeros((R, W), device="cuda").index_add_(0, idx,
+                                                                    rows)
+        library_ms = time_ms(lib)
+        library_device_ms = device_split_ms(lib, None)[1]
+        nbytes = P * W * 4 + P * 8 + R * W * 4
+        bound_ms, bound_by = bound(nbytes, 0.0, float(P * W))
+        out[name] = dict(max_abs_err=err, max_rel_err=err / scale,
+                         tol_rel=K6_TOL, ms=ms, device_ms=dev_ms,
+                         fill_ms=call_dev_ms - dev_ms,
+                         call_device_ms=call_dev_ms, plain_ms=plain_ms,
+                         library_ms=library_ms,
+                         library_device_ms=library_device_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_share=bound_ms / call_dev_ms, n=P, w=W,
+                         n_rows=R, runs=int((idx[1:] != idx[:-1]).sum()) + 1,
+                         bytes=nbytes)
+        del rows, idx
+        torch.cuda.empty_cache()
+    return dict(out["uniform"], input="uniform", at_runs=out["runs"])
 
 
 def check_k9(torch):
@@ -412,19 +437,21 @@ def check_k9(torch):
     L=8: the bench's random rows, except for no_decode and stream, which
     read the rows' bits as f32 and would meet the inf and NaN patterns in
     them (u >= 0x7F800000, 1/256 of the words); they get the bits of f32
-    U(-2, 2).  Returns, by variant, the errors and the plain version's
-    time on the same inputs; for stream, which contracts nothing, also the
-    time of the PyTorch calls that compute its function (the sum over
-    levels of the rows as f32, and ft2's zeros)."""
+    U(-2, 2).  Returns, by variant, the errors, the kernels' device time
+    (rows cold: 402.7 MB, past the L2) with the bound's share of it, and
+    the plain version's time on the same inputs; for stream, which
+    contracts nothing, also both times of the PyTorch calls that compute
+    its function (the sum over levels of the rows as f32, and ft2's
+    zeros)."""
+    from ngp_pl_torch.benchmarking import bench_inputs as bi
     from ngp_pl_torch.benchmarking import micro_fwd as mf
-    from ngp_pl_torch.benchmarking.timing import time_ms
+    from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import device_split_ms, time_ms
     from ngp_pl_torch.ops import encode_ablations as ea
 
     n = mf.N_BENCH
-    (rows, meta_T, w1big), _ = mf.make_inputs(n, torch.device("cuda"))
-    g = torch.Generator(device="cuda").manual_seed(6)
-    f32_rows = (torch.rand(rows.shape, generator=g, device="cuda") * 4.0
-                - 2.0).view(torch.int32)
+    (rows, meta_T, w1big), _ = bi.k9_inputs(n, "cuda", mf.L)
+    f32_rows = bi.k9_f32_rows(rows.shape, "cuda")
     out = {}
     for v in ea.VARIANTS:
         r = f32_rows if v in ("no_decode", "stream") else rows
@@ -441,20 +468,29 @@ def check_k9(torch):
                    for k, e in err.items()):
             raise AssertionError(f"K9 {v} disagrees: {err} (scale {scale})")
         del got, ref
+        dev_ms, call_dev_ms = device_split_ms(
+            lambda: ea.CUDA[v](r, meta_T, w1big, mf.BN),
+            (KERNEL_NAMES["K9"],))
+        bound_ms, bound_by = bound(*mf.variant_work(v, mf.L, n))
         plain_ms = time_ms(lambda: ea.encode_ablation_plain(v, r, meta_T,
                                                             w1big),
                            runs=5, warmup=1)
         out[v] = dict(max_abs_err=max(err.values()), abs_err=err,
                       max_rel_err=max(err[k] / scale[k] if scale[k] else 0.0
                                       for k in err),
-                      tol_rel=K9_TOL, plain_ms=plain_ms, n=n,
+                      tol_rel=K9_TOL, device_ms=dev_ms,
+                      call_device_ms=call_dev_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, bound_share=bound_ms / call_dev_ms,
+                      plain_ms=plain_ms, n=n,
                       rows="f32 U(-2, 2) bits" if v in ("no_decode", "stream")
                       else "the bench's random u32")
         if v == "stream":
             ft2_shape = (r.shape[0], ea.F, r.shape[1])
-            out[v]["library_ms"] = time_ms(
-                lambda: (r.view(torch.float32).sum(0),
-                         torch.zeros(ft2_shape, device="cuda")))
+            lib = lambda: (r.view(torch.float32).sum(0),
+                           torch.zeros(ft2_shape, device="cuda"))
+            out[v]["library_ms"] = time_ms(lib)
+            out[v]["library_device_ms"] = device_split_ms(lib, None)[1]
+        del r
         torch.cuda.empty_cache()
     return out
 
@@ -574,7 +610,8 @@ def profile_frame(torch, res, tcfg, top: int = 12):
 # one template each, and a path runs one of them).
 KERNEL_NAMES = {"K1": "hash_encode_fwd_kernel", "K3": "hash_encode_fwd_kernel",
                 "K7": "field_tail_fwd_mma", "K2+K5": "hash_encode_bwd_kernel",
-                "K4": "hash_encode_bwd_kernel", "K8": "field_tail_bwd_mma"}
+                "K4": "hash_encode_bwd_kernel", "K8": "field_tail_bwd_mma",
+                "K6": "scatter_rows_kernel", "K9": "encode_ablation"}
 
 
 def _timed_where_launched(counters, before, device_ms) -> None:
@@ -1143,10 +1180,11 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
-            "library_note": ("Tensor.index_add_" if "library_ms" in k
-                             else no_library),
+            "library_note": ("Tensor.index_add_ with its zero fill"
+                             if "library_ms" in k else no_library),
             **{f: k[f] for f in (
                 "device_ms", "fill_ms", "call_device_ms", "bound_share",
+                "library_device_ms", "input", "at_runs",
                 "at_train_pool", "at_train_step",
                 "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
                 "tol_rel_vs_float64_sums") if f in k}})
@@ -1170,7 +1208,12 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "max_rel_err": k["max_rel_err"],
             "tol_rel": k["tol_rel"], "ms": m["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "device_ms": k["device_ms"],
+            "call_device_ms": k["call_device_ms"],
+            "bound_share": k["bound_share"],
+            "micro_fwd_device_ms": m["device_ms"],
             "library_ms": k.get("library_ms"),
+            "library_device_ms": k.get("library_device_ms"),
             "library_note": ("Tensor.sum over levels of the rows as f32, "
                              "torch.zeros for ft2" if "library_ms" in k
                              else "the contraction is the kernel's own")})

@@ -1,10 +1,15 @@
 """Hand kernels of two trees of this repository, timed in turns on one card:
-the field tail (K7, K8), the table gradient (K2+K5 at F=4, K4 at F=2) and
-the encode forward (K1 at F=4, K3 at F=2).
+the field tail (K7, K8), the table gradient (K2+K5 at F=4, K4 at F=2), the
+encode forward (K1 at F=4, K3 at F=2), the encode ablations (K9, six
+variants) and the row scatter-add (K6).
 
     mkdir -p build/parent
     git archive <commit> ngp_pl_torch | tar -x -C build/parent
-    python -m ngp_pl_torch.benchmarking.kernel_ab build/parent .
+    python -m ngp_pl_torch.benchmarking.kernel_ab build/parent . \
+        [--groups field_tail,encode,k9,k6]
+
+`--groups` picks the kernels (all four groups by default; `encode`, K1-K4,
+fits two systems for 512 steps first, the others need no fit).
 
 Each tree runs its own wrappers (`field_tail_cuda` and `field_tail_bwd_cuda`
 of its `ops/field_tail.py`, `hash_encode_bwd_cuda`,
@@ -25,14 +30,23 @@ build/kernels/.  The turns are first, second, second, first.  In each:
   points (`table_grad_inputs.random_x`) with the seeded model's table and
   w1, called without feats as the render path calls it, and the train
   step's x with the fitted table and w1, called with feats as the train
-  step calls it.
+  step calls it;
+- the six K9 variants on the JAX bench's inputs (`bench_inputs.k9_inputs`,
+  N=196,608, L=8, rows cold: 402.7 MB, past the L2; f32 U(-2, 2) bits for
+  no_decode and stream, full_il at bn=4,096), and beside K9-stream the
+  PyTorch calls that compute its function (the sum over levels of the rows
+  as f32, and ft2's zeros);
+- K6 on two inputs (`bench_inputs.k6_uniform`, `k6_runs`): 262,144 rows of
+  128 at uniform random indices into 16,384, and the JAX scatter bench's
+  runs of 74 equal indices, 327,680 rows into 512; beside it
+  `Tensor.index_add_` with its zero fill.
 Each is timed on two clocks: the median of 20 CUDA-event-timed calls after
 3 warm-ups (the wrapper's host work included), and the device time of every
 kernel, copy and fill a call puts on the card, under torch.profiler (mean
 of 20 calls); for the table gradient also its kernel's device time alone
 (without the zero fill), from the same profile.  Each turn also reads its
-outputs' error against its own tree's f32 plain version (for K1 and K3 the
-larger of h1's and feats', each of its max).  One JSON line
+outputs' error against its own tree's f32 plain version (for K1, K3 and
+K9 the larger of their two outputs', each of its max).  One JSON line
 per kernel, input and size: both trees' times, `speedup` (the first tree's
 time over the second's, event clock) and `device_speedup`, and the bound.
 """
@@ -53,6 +67,9 @@ BWD_KERNEL = {4: "K2+K5", 2: "K4"}
 BWD_DEVICE_NAME = "hash_encode_bwd_kernel"
 FWD_KERNEL = {4: "K1", 2: "K3"}
 FWD_DEVICE_NAME = "hash_encode_fwd_kernel"
+K9_DEVICE_NAME = "encode_ablation"
+K6_DEVICE_NAME = "scatter_rows"
+GROUPS = ("field_tail", "encode", "k9", "k6")
 
 
 def make_inputs(path: Path) -> None:
@@ -113,7 +130,75 @@ def _fwd_turn(he, x, table, w1, spec, with_feats) -> dict:
                 err_vs_f32_plain=error)
 
 
-def turn(inputs_path: str) -> dict:
+def _k9_turn() -> dict:
+    """The six K9 variants of one tree on the bench's inputs, and beside
+    K9-stream the PyTorch calls that compute its function."""
+    import torch
+    from bench_inputs import K9_BN, K9_N, k9_f32_rows, k9_inputs
+    from timing import device_split_ms, time_ms
+
+    from ngp_pl_torch.ops import encode_ablations as ea
+
+    (rows, meta_T, w1big), _ = k9_inputs(K9_N, "cuda")
+    f32_rows = k9_f32_rows(rows.shape, "cuda")
+    out = {}
+    for v in ea.VARIANTS:
+        r = f32_rows if v in ("no_decode", "stream") else rows
+        if v == "full_il":
+            r = ea.interleave(r, K9_BN)
+        kernel = ea.CUDA[v]
+        got = kernel(r, meta_T, w1big, K9_BN)
+        ref = ea.encode_ablation_plain(v, r, meta_T, w1big)
+        error = max(float((a - b).abs().max() / b.abs().max())
+                    if float(b.abs().max()) else float((a - b).abs().max())
+                    for a, b in zip(got, ref))
+        del got, ref
+        call = lambda: kernel(r, meta_T, w1big, K9_BN)
+        kernel_dev, dev = device_split_ms(call, (K9_DEVICE_NAME,))
+        rec = dict(ms=time_ms(call), device_ms=dev,
+                   kernel_device_ms=kernel_dev, err_vs_f32_plain=error)
+        if v == "stream":
+            shape = (r.shape[0], ea.F, r.shape[1])
+            lib = lambda: (r.view(torch.float32).sum(0),
+                           torch.zeros(shape, device="cuda"))
+            rec.update(library_ms=time_ms(lib),
+                       library_device_ms=device_split_ms(lib, None)[1])
+        out[f"K9/{v}"] = rec
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def _k6_turn() -> dict:
+    """K6 of one tree on its two inputs, and beside it `index_add_` with its
+    zero fill."""
+    import torch
+    from bench_inputs import k6_runs, k6_uniform
+    from timing import device_split_ms, time_ms
+
+    from ngp_pl_torch.ops import scatter_rows as sr
+
+    out = {}
+    for name, make in (("uniform", k6_uniform), ("runs", k6_runs)):
+        rows, idx, R = make("cuda")
+        ref = sr.scatter_rows_plain(rows, idx, R)
+        error = float((sr.scatter_rows_cuda(rows, idx, R) - ref).abs().max()
+                      / ref.abs().max())
+        del ref
+        call = lambda: sr.scatter_rows_cuda(rows, idx, R)
+        kernel_dev, dev = device_split_ms(call, (K6_DEVICE_NAME,))
+        lib = lambda: torch.zeros((R, rows.shape[1]), device="cuda"
+                                  ).index_add_(0, idx, rows)
+        out[f"K6/{name}"] = dict(
+            ms=time_ms(call), device_ms=dev, kernel_device_ms=kernel_dev,
+            err_vs_f32_plain=error, library_ms=time_ms(lib),
+            library_device_ms=device_split_ms(lib, None)[1])
+        del rows, idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def turn(inputs_path: str, groups) -> dict:
     """One tree's times and errors, in a process whose sys.path starts with
     that tree (PYTHONPATH) after this file's own directory."""
     import torch
@@ -124,9 +209,13 @@ def turn(inputs_path: str) -> dict:
     from ngp_pl_torch.ops import field_tail as ft
     from ngp_pl_torch.ops import hash_encoding as he
 
-    ws = [w.cuda() for w in model_weights()]
     out = {}
-    for key, sizes in SIZES.items():
+    if "k9" in groups:
+        out.update(_k9_turn())
+    if "k6" in groups:
+        out.update(_k6_turn())
+    ws = [w.cuda() for w in model_weights()]
+    for key, sizes in (SIZES.items() if "field_tail" in groups else ()):
         for P in sizes:
             if key == "K7":
                 inputs = tail_inputs(P, *K7_INPUTS)
@@ -144,7 +233,8 @@ def turn(inputs_path: str) -> dict:
                                      err_vs_f32_plain=error)
             del args
             torch.cuda.empty_cache()
-    for name, inp in torch.load(inputs_path).items():
+    encode = torch.load(inputs_path) if "encode" in groups else {}
+    for name, inp in encode.items():
         spec = he.make_grid_spec(**inp["grid"])
         out[f"{FWD_KERNEL[spec.n_features]}/{name}"] = _fwd_turn(
             he, inp["fwd_x"].cuda(), inp["table"].cuda(), inp["w1"].cuda(),
@@ -166,18 +256,33 @@ def turn(inputs_path: str) -> dict:
     return out
 
 
-def _work(inputs_path: str) -> dict:
+def _work(inputs_path: str, groups) -> dict:
     """Bytes and operations of each input, as chip_smoke.py counts them.
     The table gradient: x and g in, w1, the f32 table gradient out; the
     d_wr contraction in bf16, the corner weights, products and additions
-    in f32.  The encode forward: `roofline.k1_work` on its x."""
+    in f32.  The encode forward: `roofline.k1_work` on its x.  K9:
+    `micro_fwd.variant_work`.  K6: rows and indices in, the output written
+    once, one f32 addition per input float."""
     import torch
 
+    from ngp_pl_torch.benchmarking import bench_inputs as bi
+    from ngp_pl_torch.benchmarking.micro_fwd import variant_work
     from ngp_pl_torch.benchmarking.roofline import k1_work
+    from ngp_pl_torch.ops import encode_ablations as ea
     from ngp_pl_torch.ops import hash_encoding as he
 
     work = {}
-    for name, inp in torch.load(inputs_path).items():
+    if "k9" in groups:
+        for v in ea.VARIANTS:
+            work[f"K9/{v}"] = (*variant_work(v, bi.K9_LEVELS, bi.K9_N),
+                               bi.K9_N)
+    if "k6" in groups:
+        for name, (P, W, R) in (("uniform", bi.K6_UNIFORM),
+                                ("runs", bi.K6_RUNS[:3])):
+            work[f"K6/{name}"] = (P * W * 4 + P * 8 + R * W * 4, 0.0,
+                                  float(P * W), P)
+    encode = torch.load(inputs_path) if "encode" in groups else {}
+    for name, inp in encode.items():
         spec = he.make_grid_spec(**inp["grid"])
         nbytes, contraction, interp, _ = k1_work(
             inp["fwd_x"], spec, inp["table"], inp["w1"],
@@ -195,7 +300,8 @@ def _work(inputs_path: str) -> dict:
 
 
 def _record(key, t, trees, card, bound_ms, bound_by, **extra) -> dict:
-    clocks = [c for c in ("ms", "device_ms", "kernel_device_ms") if c in t[0]]
+    clocks = [c for c in ("ms", "device_ms", "kernel_device_ms", "library_ms",
+                          "library_device_ms") if c in t[0]]
     if "kernel_device_ms" in t[0]:
         extra["kernel_device_speedup"] = (
             (t[0]["kernel_device_ms"] + t[3]["kernel_device_ms"])
@@ -216,7 +322,7 @@ def _record(key, t, trees, card, bound_ms, bound_by, **extra) -> dict:
                                       ("second_", (1, 2)))})
 
 
-def run(first: Path, second: Path, emit=print) -> list:
+def run(first: Path, second: Path, emit=print, groups=GROUPS) -> list:
     from ngp_pl_torch import _build
     from ngp_pl_torch.benchmarking.roofline import bound
 
@@ -228,22 +334,24 @@ def run(first: Path, second: Path, emit=print) -> list:
     scratch.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as tmp:
         inputs_path = os.path.join(tmp, "encode_inputs.pt")
-        make_inputs(Path(inputs_path))
+        if "encode" in groups:
+            make_inputs(Path(inputs_path))
         turns = []
         for tree in (trees[0], trees[1], trees[1], trees[0]):
             env = dict(os.environ, PYTHONPATH=str(tree))
             proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--turn", inputs_path], cwd=tree, env=env,
+                                   "--turn", inputs_path, "--groups",
+                                   ",".join(groups)], cwd=tree, env=env,
                                   text=True, capture_output=True)
             if proc.returncode:
                 raise RuntimeError(f"the turn of {tree} failed:\n"
                                    f"{proc.stderr}")
             turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-        work = _work(inputs_path)
+        work = _work(inputs_path, groups)
     # bytes and multiply-adds as chip_smoke.py counts them (weights 7,360)
     n_w = 16 * 64 + 32 * 64 + 64 * 64 + 64 * 3
     records = []
-    for key, sizes in SIZES.items():
+    for key, sizes in (SIZES.items() if "field_tail" in groups else ()):
         for P in sizes:
             t = [r[f"{key}/{P}"] for r in turns]
             if key == "K7":
@@ -270,16 +378,21 @@ def main(argv=None) -> list:
                     help="root of the tree timed first and last")
     ap.add_argument("second", type=Path, nargs="?",
                     help="root of the tree timed in the middle turns")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help=f"comma-separated, of {', '.join(GROUPS)}")
     ap.add_argument("--turn", metavar="INPUTS",
                     help="time the tree on sys.path on these encode inputs "
                     "(internal)")
     args = ap.parse_args(argv)
+    groups = tuple(g for g in args.groups.split(",") if g)
+    if not groups or set(groups) - set(GROUPS):
+        ap.error(f"--groups: pick from {', '.join(GROUPS)}")
     if args.turn:
-        print(json.dumps(turn(args.turn)), flush=True)
+        print(json.dumps(turn(args.turn, groups)), flush=True)
         return []
     if args.first is None or args.second is None:
         ap.error("give the roots of two trees")
-    return run(args.first, args.second)
+    return run(args.first, args.second, groups=groups)
 
 
 if __name__ == "__main__":

@@ -16,10 +16,13 @@ N random points of the flagship grid: K9-full against K1 splits K1's time
 into gather and math.
 
 Prints one JSON line per row: the median time of 20 calls after 3 of
-warm-up (CUDA events), as the JAX bench times, the least time the card could take (the larger of
-the bytes over 3.35 TB/s and the operations over the peak rate of their
-type, H100 data sheet) and which of the two it is, and the launches of the
-row's kernel.  The rows are 402.7 MB, far past the 50 MB L2; K1's table
+warm-up (CUDA events, the wrapper's host work included), as the JAX bench
+times; on the card also the device time of the row's kernels alone (mean of
+20 more calls under torch.profiler, `timing.device_ms`; every kernel of the
+call for gather_il) and the bound's share of it; the least time the card
+could take (the larger of the bytes over 3.35 TB/s and the operations over
+the peak rate of their type, H100 data sheet) and which of the two it is;
+and the launches of the row's kernel (warm-up, timed and profiled calls).  The rows are 402.7 MB, far past the 50 MB L2; K1's table
 points stay in it.  Runs on the card unless `--device cpu`, where the plain
 versions run and their host times are reported as `cpu_ms`; without CUDA it
 raises.
@@ -32,22 +35,24 @@ import statistics
 import time
 from typing import Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
+from ngp_pl_torch.benchmarking import bench_inputs as bi
 from ngp_pl_torch.benchmarking.roofline import bound, k1_work
+from ngp_pl_torch.benchmarking.timing import device_ms
 from ngp_pl_torch.config import TrainConfig
 from ngp_pl_torch.device import resolve_device
 from ngp_pl_torch.models.ngp import NGP
 from ngp_pl_torch.ops import encode_ablations as ea
 from ngp_pl_torch.ops import hash_encoding as he
 
-L = 8
-N_BENCH = 196608
-BN = 4096                      # the interleaved layout's block
+L = bi.K9_LEVELS
+N_BENCH = bi.K9_N
+BN = bi.K9_BN                  # the interleaved layout's block
 GATHER_ROWS = 100000           # rows of the table gathered from (MAIN2)
-SEED = 0                       # the JAX bench's default_rng(0)
+SEED = bi.K9_SEED              # the JAX bench's default_rng(0)
 RUNS, WARMUP = 20, 3           # timed calls and warm-up calls per row
+K9_NAMES = ("encode_ablation",)   # the K9 kernels as the profiler names them
 
 
 def variant_work(variant: str, levels: int, n: int):
@@ -90,19 +95,6 @@ def time_ms(fn: Callable, dev: torch.device) -> float:
     return statistics.median(times)
 
 
-def make_inputs(n: int, dev: torch.device):
-    """The JAX bench's inputs: rows (L, n, 64) u32 bits as int32, meta_T
-    (L, 4, n) and w1big (L, 128, 64) f32; and the generator, for what MAIN2
-    draws after them."""
-    rng = np.random.default_rng(SEED)
-    rows = rng.integers(0, 2 ** 31, (L, n, ea.WH), dtype=np.int64).astype(
-        np.uint32).view(np.int32)
-    meta_T = rng.random((L, ea.META_W, n)).astype(np.float32)
-    w1big = rng.random((L, ea.W, ea.H)).astype(np.float32)
-    return ([torch.from_numpy(a).to(dev) for a in (rows, meta_T, w1big)],
-            rng)
-
-
 def run(device="cuda", n: int = N_BENCH, interleaved: bool = False,
         bn: int = BN,
         emit: Optional[Callable[[Dict], None]] = None) -> List[Dict]:
@@ -112,29 +104,32 @@ def run(device="cuda", n: int = N_BENCH, interleaved: bool = False,
     on_card = dev.type == "cuda"
     card = torch.cuda.get_device_name(dev) if on_card else "cpu"
     emit = emit or (lambda rec: print(json.dumps(rec), flush=True))
-    (rows, meta_T, w1big), rng = make_inputs(n, dev)
+    (rows, meta_T, w1big), rng = bi.k9_inputs(n, dev, L)
     records = []
 
-    def record(name, fn, work, counter=None):
+    def record(name, fn, work, counter=None, names=None):
         before = counter.launches if counter is not None else 0
         ms = time_ms(fn, dev)
         bound_ms, bound_by = bound(*work[:3])
         rec = {"row": name, "n": n, "device": card,
                "ms" if on_card else "cpu_ms": ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "bytes": work[0],
-               "launches": counter.launches - before
-               if counter is not None else 0}
+               "bound_by": bound_by, "bytes": work[0]}
+        if on_card:
+            rec["device_ms"] = device_ms(fn, names, runs=RUNS)
+            rec["bound_share"] = bound_ms / rec["device_ms"]
+        rec["launches"] = (counter.launches - before
+                           if counter is not None else 0)
         records.append(rec)
         emit(rec)
 
     for v in ("full", "no_decode", "no_wrow", "no_ft", "stream"):
         record(v, lambda v=v: ea.encode_ablation(v, rows, meta_T, w1big),
-               variant_work(v, L, n), ea.CUDA[v])
+               variant_work(v, L, n), ea.CUDA[v], K9_NAMES)
     if interleaved:
         rows_il = ea.interleave(rows, bn)
         record("full_il", lambda: ea.encode_ablation("full_il", rows_il,
                                                      meta_T, w1big, bn),
-               variant_work("full_il", L, n), ea.CUDA["full_il"])
+               variant_work("full_il", L, n), ea.CUDA["full_il"], K9_NAMES)
         del rows_il
         slot = torch.from_numpy(rng.integers(0, GATHER_ROWS, (L, n))).to(dev)
         sl = slot.reshape(L, n // bn, bn).transpose(0, 1).reshape(-1)
@@ -153,7 +148,8 @@ def run(device="cuda", n: int = N_BENCH, interleaved: bool = False,
                    ).to(dev)
     table, w1 = ngp.encode_table(), ngp.sigma_mlp[0].detach()
     record("k1", lambda: he.hash_encode_fwd(x, table, w1, ngp.spec),
-           k1_work(x, ngp.spec, table, w1), he.hash_encode_fwd_cuda)
+           k1_work(x, ngp.spec, table, w1), he.hash_encode_fwd_cuda,
+           ("hash_encode_fwd_kernel",))
     return records
 
 

@@ -28,11 +28,14 @@ w1big of the bench are random: the decoder meets f16 exponent 31, where it
 returns 2^16 * (1 + m/1024) * sign and not inf or NaN.
 
 `encode_ablation` dispatches: the plain version for CPU tensors, the kernel
-(`CUDA[variant]`, which counts its launches) for CUDA tensors.
+(`CUDA[variant]`, which counts its launches) for CUDA tensors.  A
+contracting variant's call first packs w1big into bf16 `mma` B fragments
+on the card, once per call, in the layout `pack_w1_layout` spells out.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -44,7 +47,8 @@ VARIANTS = ("full", "no_decode", "no_wrow", "no_ft", "stream", "full_il")
 W, WH, H, F = 128, 64, 64, 4   # lanes per row, u32 words per row, h1, features
 N_PTS = 27                     # corner points of a brick row
 META_W = 4                     # meta_T rows: px, py, pz, pad
-TILE = 128                     # samples per CUDA block: N and bn are multiples
+TILE = 128                     # samples per kernel item: N and bn are multiples
+W1P_WORDS = W * H // 2         # u32 words of one level's packed bf16 w1
 
 
 def f16_bits_to_f32(h: torch.Tensor) -> torch.Tensor:
@@ -136,6 +140,26 @@ def encode_ablation_plain(variant: str, rows: torch.Tensor,
     return h1, ft2
 
 
+def pack_w1_layout(w1big: torch.Tensor) -> torch.Tensor:
+    """The kernel's packed w1, in PyTorch: w1big (L, 128, 64) f32 -> (L, 8,
+    4, 32, 4, 2) bf16 [l][kc][ntp][lane][q][half], the `mma` B fragments of
+    k-chunk kc = 2 cp + h for lane (g, t) = (lane >> 2, lane & 3): q = 0, 1
+    are b0, b1 of n-tile 2 ntp, q = 2, 3 those of n-tile 2 ntp + 1; b0 (b1)
+    holds lanes j and j + 64 of w1's rows, j = 16 cp + 4 t + 2 h (+ 1), in
+    column 8 nt + g.  The kernel's A fragments permute the 128 lanes the same
+    way, so each k-chunk pairs the row values of lanes j and j + 64 with
+    these weights."""
+    L = w1big.shape[0]
+    kc, ntp, lane, q = torch.meshgrid(torch.arange(8), torch.arange(4),
+                                      torch.arange(32), torch.arange(4),
+                                      indexing="ij")
+    col = (2 * ntp + (q >> 1)) * 8 + (lane >> 2)
+    j = 16 * (kc >> 1) + 4 * (lane & 3) + 2 * (kc & 1) + (q & 1)
+    w = w1big.to(torch.bfloat16)
+    pairs = torch.stack([w[:, j, col], w[:, j + WH, col]], dim=-1)
+    return pairs.reshape(L, 8, 4, 32, 4, 2)
+
+
 class _Kernel:
     """The wrapper of one variant's `extern "C"` entry in
     csrc/encode_ablations.cu; `launches` counts its launches."""
@@ -143,31 +167,76 @@ class _Kernel:
     def __init__(self, variant: str):
         self.variant = variant
         self.launches = 0
+        self._il = variant == "full_il"
+        self._stream = variant == "stream"
 
-    def __call__(self, rows, meta_T, w1big, bn: int = 0):
-        L, N = meta_T.shape[0], meta_T.shape[2]
-        il = self.variant == "full_il"
-        if N % TILE or (il and (bn <= 0 or bn % TILE or N % bn)):
-            raise ValueError(f"N={N} must be a multiple of {TILE}, and of "
-                             f"bn={bn}, a multiple of {TILE}, for full_il")
-        shape = (N // bn, L, bn, WH) if il else (L, N, WH)
-        _check_tensors(meta_T.device,
-                       ("rows", rows, torch.int32, shape, 16),
-                       ("meta_T", meta_T, torch.float32, (L, META_W, N), 16),
-                       ("w1big", w1big, torch.float32, (L, W, H), 16))
-        h1 = torch.empty((N, H), dtype=torch.float32, device=rows.device)
-        ft2 = torch.empty((L, F, N), dtype=torch.float32, device=rows.device)
+    @functools.cached_property
+    def _fn(self):
         entry = f"encode_ablation_{self.variant}"
         fn = getattr(_build.library("encode_ablations"), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
             ctypes.c_void_p]
-        err = fn(rows.data_ptr(), meta_T.data_ptr(), w1big.data_ptr(),
-                 h1.data_ptr(), ft2.data_ptr(), N, L, bn,
-                 torch.cuda.current_stream(rows.device).cuda_stream)
-        _build.check(err, entry)
+        return fn
+
+    def __call__(self, rows, meta_T, w1big, bn: int = 0):
+        L, _, N = meta_T.shape
+        if N % TILE or (self._il and (bn <= 0 or bn % TILE or N % bn)):
+            raise ValueError(f"N={N} must be a multiple of {TILE}, and of "
+                             f"bn={bn}, a multiple of {TILE}, for full_il")
+        shape = (N // bn, L, bn, WH) if self._il else (L, N, WH)
+        # the checks of `_check_tensors` written out, since the host's work
+        # before the launch is part of the call's event time; on a miss
+        # `_check_tensors` says what is wrong
+        dev = meta_T.get_device()
+        p_rows, p_meta, p_w1 = rows.data_ptr(), meta_T.data_ptr(), \
+            w1big.data_ptr()
+        if not (dev >= 0 and rows.get_device() == dev
+                and w1big.get_device() == dev and rows.dtype is torch.int32
+                and meta_T.dtype is torch.float32
+                and w1big.dtype is torch.float32 and rows.shape == shape
+                and meta_T.shape[1] == META_W and w1big.shape == (L, W, H)
+                and rows.is_contiguous() and meta_T.is_contiguous()
+                and w1big.is_contiguous() and (p_rows | p_meta | p_w1) % 16
+                == 0):
+            _check_tensors(meta_T.device,
+                           ("rows", rows, torch.int32, shape, 16),
+                           ("meta_T", meta_T, torch.float32, (L, META_W, N),
+                            16),
+                           ("w1big", w1big, torch.float32, (L, W, H), 16))
+        # h1, ft2 and (but for stream) the packed w1 in one allocation, the
+        # views made after the launch
+        n_h1, n_ft2 = N * H, L * F * N
+        buf = torch.empty(n_h1 + n_ft2 + (0 if self._stream
+                                          else L * W1P_WORDS),
+                          dtype=torch.float32, device=rows.device)
+        base = buf.data_ptr()
+        err = self._fn(p_rows, p_meta, p_w1,
+                       None if self._stream else base + 4 * (n_h1 + n_ft2),
+                       base, base + 4 * n_h1, N, L, bn,
+                       torch._C._cuda_getCurrentRawStream(dev))
+        _build.check(err, f"encode_ablation_{self.variant}")
         self.launches += 1
-        return h1, ft2
+        return (buf[:n_h1].view(N, H),
+                buf[n_h1:n_h1 + n_ft2].view(L, F, N))
+
+
+def pack_w1_cuda(w1big: torch.Tensor) -> torch.Tensor:
+    """The kernels' own pack of w1big (L, 128, 64) f32 on the card, as
+    (L * 8,192,) int32 words of bf16 pairs (`pack_w1_layout`'s order)."""
+    L = w1big.shape[0]
+    _check_tensors(w1big.device,
+                   ("w1big", w1big, torch.float32, (L, W, H), 16))
+    w1p = torch.empty((L * W1P_WORDS,), dtype=torch.int32,
+                      device=w1big.device)
+    fn = _build.library("encode_ablations").encode_ablation_pack_w1
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    _build.check(fn(w1big.data_ptr(), w1p.data_ptr(), L,
+                    torch.cuda.current_stream(w1big.device).cuda_stream),
+                 "encode_ablation_pack_w1")
+    return w1p
 
 
 CUDA = {v: _Kernel(v) for v in VARIANTS}
