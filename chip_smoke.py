@@ -58,6 +58,16 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            393,216-slot pool, ray by ray, zero rows on unused slots; K1 on
            that x with the fitted table, called with feats as the train
            step calls it; checked and timed as at random points
+All of the train phases (train_reference, train, train_reference again,
+trained_render, profile, kernels) again in the strided layout
+(`_strided`: 8192 rays x S slots, the invalid ones at their ray's origin;
+K1 and K2+K5 on its train step's input) and in rounds with the distortion
+loss at 1e-2 (`_rounds`: four rounds of 8192, 4096, 2048 and 1024 slots
+each step, no kernels phase), trained from the seed and each
+step held to the CSR path's limits; each fit also logs every 16-step
+block: layout, S, chain, the share of the batch left out of the loss,
+samples per ray marched and composited, rays alive after the last round
+and the rounds' slots.
 Then the same for the reference's own geometry, L16F2 (L=16, F=2, T=2^19,
 the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
 and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
@@ -146,8 +156,23 @@ TRAINED_KERNEL_TOL = (1e-4, 5e-3)
 # PERF.md).  So the whole step is held to 1e-2 there (2.7x that reading)
 # and K3 and K4, each alone, to STEP_TOL.
 STEP_TOL_L16F2 = (1e-5, 1e-2)
+# The strided and rounds steps from the seeded state, against the CPU: in
+# grid warmup they leave ~90% of the batch out of the loss, and the rest
+# are rays through empty space, whose opacity 1 - exp(-sigma delta) (sigma
+# delta ~1e-3) cancels; the card's exp differs from the CPU's in the last
+# bit, so the loss (~8e-6) moves by ~2e-5 of itself with every hand kernel
+# replaced by its plain version (the H100, `witness_all_plain_vs_cpu`;
+# PERF.md).  So that comparison takes the trained-state limit; the
+# kernels are held to STEP_TOL against the plain versions on the card.
+SEEDED_MASKED_CPU_TOL = TRAINED_CPU_TOL
+# ROUNDS_NOTE: from the seed the rounds layout does not train on bench.py's
+# scene (~85% of each batch is out of the loss, PERF.md), so after its fit
+# the loss is ~1e-10, made of rays through empty space; there the card's
+# step with no hand kernel misses the CPU's by ~50% of the loss (H100), and
+# `train_reference` holds that state by `cpu_floor_by_witness`.
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
 TRAINED_BATCHES_L16F2 = (7, 8)
+TRAINED_BATCHES_LAYOUTS = (7,)     # the strided and rounds paths
 TRAIN_STEPS = 512              # 32 blocks: 16 warmup refreshes, then phases
 K7_N = 1048576                 # K7's samples in the kernels phase
 K8_N = 262144                  # K8's
@@ -656,20 +681,40 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
     """`NeRFSystem.fit`: 16-step blocks, each after one grid refresh.  The
     fit logs every 128 steps after a fence, so rays/s over the last 8
     blocks is fenced at both ends.  Every kernel of the path must have
-    launched."""
+    launched and every loss be finite.  In CSR, where every ray is in the
+    loss, the loss must fall; the strided and rounds layouts leave rays
+    out of it (all of them in grid warmup, where no strided row or rounds
+    budget covers a ray), so there the blocks' PSNR over the whole batch
+    is reported without a limit."""
     tcfg, dev = system.tcfg, system.dev
     counters = _counters()
+    blocks, step_block = [], system.step_block
+
+    def recorded_block():
+        """The block, and its layout, budget and chain, kept on the
+        device: reading them here would fence every block."""
+        layout, S, chain = system.layout, system._pool_mult, \
+            system.step_chain()
+        m = step_block()
+        blocks.append((system._host_step, layout, S, chain,
+                       {k: m[k] for k in BLOCK_KEYS}))
+        return m
+
+    system.step_block = recorded_block
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    hist = system.fit(max_steps=steps, log_every=128, quiet=True)
+    try:
+        hist = system.fit(max_steps=steps, log_every=128, quiet=True)
+    finally:
+        del system.step_block
     _sync(torch, dev)
     seconds = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     first, last = hist[0], hist[-1]
     if not all(math.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"non-finite loss: {[h['loss'] for h in hist]}")
-    if not last["loss"] < first["loss"]:
+    if system.layout == "csr" and not last["loss"] < first["loss"]:
         raise AssertionError(f"loss did not fall: {first['loss']} -> "
                              f"{last['loss']}")
     if torch.device(dev).type == "cuda" and not all(
@@ -685,12 +730,34 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
                psnr={h["step"]: h["psnr"] for h in hist},
                rays_per_s_last8=tcfg.batch_size * tcfg.grid_update_interval
                / block_s, block_ms=block_s * 1e3,
-               pool_mult=system._pool_mult, chain_length=system.chain_length,
+               layout=system.layout, pool_mult=system._pool_mult,
+               chain_length=system.step_chain(),
                chain_full=system.chain_full,
                rm_samples_per_ray=last["rm_samples"] / tcfg.batch_size,
                occupied=float(system.grid_state.occ_grid.float().mean()),
-               launches=launches)
+               launches=launches, layout_log=system.layout_log,
+               blocks=[_block_record(tcfg.batch_size, *b) for b in blocks])
     return out
+
+
+# a block's metrics kept per 16-step block of a fit (the last step's)
+BLOCK_KEYS = ("loss", "psnr", "dropped_share", "rm_samples", "vr_samples",
+              "rounds_alive_end", "total_slots")
+
+
+def _block_record(batch, step, layout, S, chain, m):
+    """One block of a fit: the layout, budget (the CSR pool's multiple or
+    S) and chain it ran with; loss and PSNR; the share of the batch left
+    out of the loss; samples per ray marched (rm, the block's largest) and
+    composited (vr); rays alive after the last round and the slots of a
+    rounds step."""
+    v = {k: float(t) for k, t in m.items()}
+    return dict(step=step, layout=layout, S=S, chain=chain, loss=v["loss"],
+                psnr=v["psnr"], dropped_share=v["dropped_share"],
+                rm_per_ray=v["rm_samples"] / batch,
+                vr_per_ray=v["vr_samples"] / batch,
+                rounds_alive_end=int(v["rounds_alive_end"]),
+                total_slots=int(v["total_slots"]))
 
 
 def tpu_staged_samples(torch, system, rays_o, rays_d, noise) -> int:
@@ -746,23 +813,27 @@ def plain_on_card(*keys):
             setattr(mod, attr, fn)
 
 
+# what must be identical in two train steps of one layout from one state:
+# the pool, the strided block, or (rounds) what the rounds decided per ray
+STEP_POOL = {"csr": ("ts", "ray_idx"), "strided": ("ts", "valid"),
+             "rounds": ("rm_counts", "loss_mask")}
+
+
 def _train_step_on(torch, system, model, dev, batch):
     """Loss, gradients, pool and sample count of one train step of `model`
-    on `dev` from the system's grid, pool size and chain."""
-    from ngp_pl_torch.models.rendering import render_rays_train_csr
-    from ngp_pl_torch.training.losses import nerf_loss, total_loss
+    on `dev` from the system's grid, layout, budget and chain."""
+    from ngp_pl_torch.training.train_step import train_render
 
     rays_o, rays_d, target, noise = batch
-    res = render_rays_train_csr(
+    res, loss_of = train_render(
         model, system.grid_state.win_rows.to(dev), rays_o.to(dev),
         rays_d.to(dev), noise.to(dev), torch.ones(3, device=dev),
-        rcfg=system.rcfg, pool_mult=system._pool_mult,
-        chain_length=system.chain_length)
-    loss = total_loss(nerf_loss(res, target.to(dev),
-                                lambda_opacity=system.tcfg.opacity_loss_w))
+        tcfg=system.tcfg, rcfg=system.rcfg, n_samples=system._pool_mult,
+        chain_length=system.step_chain(), layout=system.layout)
+    loss = loss_of(target.to(dev))
     grads = torch.autograd.grad(loss, [w for _, _, w in model._slots()])
     return dict(loss=float(loss.detach()), grads=[t.cpu() for t in grads],
-                pool={k: res[k].cpu() for k in ("ts", "ray_idx")},
+                pool={k: res[k].cpu() for k in STEP_POOL[system.layout]},
                 samples=int(res["rm_samples"]))
 
 
@@ -782,7 +853,8 @@ def _step_err(torch, names, got, ref):
 
 
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
-                    n_rays=2048, alone=(), alone_tol=None):
+                    n_rays=2048, alone=(), alone_tol=None,
+                    cpu_floor_by_witness=False):
     """One train step's loss and gradients from the system's state on the
     card (kernels), against the same step on the CPU (plain versions) and
     on the card with every kernel replaced by its plain version; same batch,
@@ -796,7 +868,14 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     their plain versions, against the all-plain step on the card
     (`alone_vs_plain_on_card`), which tells the kernels' shares apart; the
     kernels named in `alone` are held to `alone_tol` there.  `cpu_tol`,
-    `card_tol` and `alone_tol` are (loss, gradient) limits."""
+    `card_tol` and `alone_tol` are (loss, gradient) limits.
+
+    With `cpu_floor_by_witness`, a batch whose card step misses the CPU's
+    past `cpu_tol` while the card's step with no hand kernel misses it past
+    `cpu_tol` too (a loss at the rounding floor: the rounds layout's ~1e-10
+    after a fit, see ROUNDS_NOTE) is held by its pool against the CPU and
+    by `card_tol` against the plain versions on the card; the record says
+    so (`cpu_gate`)."""
     from ngp_pl_torch.datasets.ray_utils import get_rays
     from ngp_pl_torch.models.ngp import NGP
 
@@ -852,17 +931,27 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                    witness_all_plain_vs_cpu={
                        k: v for k, v in _step_err(torch, names, plain,
                                                   ref).items() if k in brief})
-        if seed == seeds[0]:
+        if seed == seeds[0] and system.layout == "csr":
             out["tpu_staged_samples"] = tpu_staged_samples(
                 torch, system, *batch[:2], batch[3])
-        failed |= not (within(vs_cpu, cpu_tol) and within(vs_card, card_tol))
+        cpu_ok = within(vs_cpu, cpu_tol)
+        if (not cpu_ok and cpu_floor_by_witness and vs_cpu["pool_identical"]
+                and not within(out["witness_all_plain_vs_cpu"] | {
+                    "pool_identical": True}, cpu_tol)):
+            out["cpu_gate"] = ("the card's step with no hand kernel misses "
+                               "the CPU past the limit too: held by the "
+                               "pool and against the plain versions on the "
+                               "card")
+            cpu_ok = True
+        failed |= not (cpu_ok and within(vs_card, card_tol))
         batches.append(out)
 
     def worst(side, key):
         return max(b[side][key] for b in batches)
 
-    out = dict(rays=n_rays, pool_mult=system._pool_mult,
-               chain_length=system.chain_length, cpu_tol=cpu_tol,
+    out = dict(rays=n_rays, layout=system.layout,
+               pool_mult=system._pool_mult,
+               chain_length=system.step_chain(), cpu_tol=cpu_tol,
                card_tol=card_tol, alone=list(alone), alone_tol=alone_tol,
                alone_vs_plain_on_card_max={
                    key: [max(b["alone_vs_plain_on_card"][key][m]
@@ -1002,17 +1091,21 @@ def ckpt_roundtrip(torch, res, tcfg):
 
 
 def train_path(torch, tcfg, card, suffix, trained_batches,
-               seeded_tol=STEP_TOL, alone=()):
-    """The train path of one geometry: the seeded step against the CPU and
-    the plain versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
+               seeded_tol=STEP_TOL, alone=(), at_step=True,
+               seeded_cpu_tol=None):
+    """The train path of one geometry: the seeded step against the CPU
+    (limit `seeded_cpu_tol`, by default `seeded_tol`) and the plain
+    versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
     from 0 just before, read just after), the trained step on
     `trained_batches`, the trained field's 800x800 render and a profiled
     block.  The kernels named in `alone` are held, each alone, to STEP_TOL
     (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card.  Then the encode kernel and the table-gradient kernel on
-    the input of one more train step (`table_grad_inputs.capture`: the CSR
-    pool's positions and gradients, ray by ray, zero rows on its unused
-    slots).  Returns the fit's record and the two kernels' records, by
+    on the card.  Then, if `at_step`, the encode kernel and the
+    table-gradient kernel on the input of one more train step
+    (`table_grad_inputs.capture`: the CSR pool's positions and gradients,
+    ray by ray, zero rows on its unused slots; in the strided layout the
+    (N, S) block's, its invalid slots at their ray's origin with zero
+    rows).  Returns the fit's record and the two kernels' records, by
     key."""
     from ngp_pl_torch.benchmarking.table_grad_inputs import capture
     from ngp_pl_torch.benchmarking.train_setup import train_system
@@ -1021,8 +1114,8 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     system.on_train_start()
     system._refresh_grid(0)
     log({"phase": "train_reference" + suffix, "state": "seeded",
-         **train_reference(torch, system, seeded_tol, seeded_tol,
-                           alone=alone, alone_tol=STEP_TOL)})
+         **train_reference(torch, system, seeded_cpu_tol or seeded_tol,
+                           seeded_tol, alone=alone, alone_tol=STEP_TOL)})
     del system
     torch.cuda.empty_cache()
     system = train_system(tcfg)
@@ -1031,11 +1124,17 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     log({"phase": "train_reference" + suffix, "state": "trained",
          **train_reference(torch, system, TRAINED_CPU_TOL,
                            TRAINED_KERNEL_TOL, seeds=trained_batches,
-                           alone=alone, alone_tol=TRAINED_KERNEL_TOL)})
+                           alone=alone, alone_tol=TRAINED_KERNEL_TOL,
+                           cpu_floor_by_witness=system.layout == "rounds")})
     log({"phase": "trained_render" + suffix, "card": card,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
+         "layout": system.layout, "S": system._pool_mult,
          **profile_block(torch, system, train["block_ms"])})
+    if not at_step:
+        del system
+        torch.cuda.empty_cache()
+        return train, {}
     x, gr, w1 = capture(system)
     fwd, bwd = path_kernels(system.cfg)[:2]
     at_step = {
@@ -1127,6 +1226,18 @@ def main() -> int:
         checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
 
+    # the flagship in the strided layout and in rounds with the distortion
+    # loss, counted the same way
+    for layout, lam in (("strided", 0.0), ("rounds", 1e-2)):
+        suffix = "_" + layout
+        train, at_step = train_path(
+            torch, train_config(train_layout=layout, distortion_loss_w=lam),
+            card, suffix, TRAINED_BATCHES_LAYOUTS,
+            at_step=layout == "strided", seeded_cpu_tol=SEEDED_MASKED_CPU_TOL)
+        for key, rec in at_step.items():
+            checks[key]["at_train_step" + suffix] = rec
+        launches["train" + suffix] = train["launches"]
+
     # the L16F2 render and train paths, counted the same way
     tcfg = tcfgs["l16f2"]
     res, out = render_slice(torch, tcfg, views=1)
@@ -1186,6 +1297,7 @@ def main() -> int:
                 "device_ms", "fill_ms", "call_device_ms", "bound_share",
                 "library_device_ms", "input", "at_runs",
                 "at_train_pool", "at_train_step",
+                "at_train_step_strided",
                 "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
                 "tol_rel_vs_float64_sums") if f in k}})
     # K9 on its own path, the bench: times, bounds and launches from the

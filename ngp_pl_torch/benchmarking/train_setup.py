@@ -6,11 +6,12 @@ from __future__ import annotations
 
 def train_config(**kw):
     """The flagship's train configuration on bench.py's scene (batch 8192,
-    the 30-epoch cosine); `kw` changes the geometry."""
+    the 30-epoch cosine, the CSR layout, so that readings stay comparable
+    across revisions); `kw` changes the geometry or the layout."""
     from ngp_pl_torch.config import TrainConfig
 
-    return TrainConfig(dataset_name="synthetic", batch_size=8192,
-                       num_epochs=30, **kw)
+    return TrainConfig(**{"dataset_name": "synthetic", "batch_size": 8192,
+                          "num_epochs": 30, "train_layout": "csr", **kw})
 
 
 def train_system(tcfg=None, dev="cuda", img_size=96, n_train=8):

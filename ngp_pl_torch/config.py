@@ -81,8 +81,8 @@ class TrainConfig:
     and the L=8, F=4, T=2^19 brick table; `--n_levels 16 --n_features 2`
     is the reference's own L16F2 geometry.  The port's field covers the
     Sigmoid head only, so the HDR switch is not a flag yet.  The train
-    layout defaults to "csr", the one layout the port has; the JAX
-    package's "auto" may switch to the strided layout after grid warmup."""
+    layout defaults to "auto", as the JAX package's: CSR through grid
+    warmup, then strided or CSR by the demand's shape."""
 
     dataset_name: str = "synthetic"
     downsample: float = 1.0
@@ -92,6 +92,7 @@ class TrainConfig:
     log2_hashmap_size: int = 19
     # loss (opt.py:24-29, losses.py:42-45)
     opacity_loss_w: float = 1e-3
+    distortion_loss_w: float = 0.0             # mip-NeRF 360 distortion
     # training (opt.py:31-52)
     batch_size: int = 8192
     ray_sampling_strategy: str = "all_images"  # all_images|same_image
@@ -105,7 +106,7 @@ class TrainConfig:
     # density-grid cadence (reference train.py:58-59, 160-163)
     grid_update_interval: int = 16
     grid_warmup_steps: int = 256
-    train_layout: str = "csr"
+    train_layout: str = "auto"                 # auto|strided|csr|rounds
     log_every: int = 100
     exp_name: str = "exp"
     weight_path: Optional[str] = None
@@ -151,7 +152,7 @@ def add_eval_args(parser) -> None:
 def add_train_args(parser) -> None:
     """argparse surface of the training entry point: the subset of the JAX
     package's train.py flags (ngp_pl_tpu/config.py:185-228) that the port
-    covers, with the same names and defaults (except --train_layout)."""
+    covers, with the same names and defaults."""
     add_eval_args(parser)
     d = TrainConfig()
     parser.add_argument("--batch_size", type=int, default=d.batch_size)
@@ -162,6 +163,8 @@ def add_train_args(parser) -> None:
     parser.add_argument("--iters_per_epoch", type=int,
                         default=d.iters_per_epoch)
     parser.add_argument("--lr", type=float, default=d.lr)
+    parser.add_argument("--distortion_loss_w", type=float,
+                        default=d.distortion_loss_w)
     parser.add_argument("--random_bg", action="store_true")
     parser.add_argument("--exp_name", type=str, default=d.exp_name)
     parser.add_argument("--train_layout", type=str, default=d.train_layout,

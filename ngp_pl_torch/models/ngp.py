@@ -13,7 +13,8 @@ tail (K7); when autograd records it, it is differentiable through
 `hash_encode_mlp` (K1 or K3 forward, the table-gradient kernel K2+K5 or K4
 backward) and `field_tail_fn` (K7 forward, K8 backward), with gradients to
 the f32 table and the MLP weights and none to positions or directions
-(`need_x_grad=False`).  Only the Sigmoid head of the reference geometry is
+(`need_x_grad=False`).  `forward_rays` is `forward` over a strided (N, S)
+block of samples, with the SH once per ray.  Only the Sigmoid head of the reference geometry is
 covered; other heads raise until a later slice.
 """
 from __future__ import annotations
@@ -159,10 +160,29 @@ class NGP(nn.Module):
         h = _bf(_bf(torch.relu(self._h1(x))) @ _bf(self.sigma_mlp[1]))
         return trunc_exp(h[:, 0])
 
+    def _sh(self, d: torch.Tensor) -> torch.Tensor:
+        dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        return sh_encode((dn + 1.0) * 0.5, self.cfg.sh_degree)
+
     def forward(self, x: torch.Tensor, d: torch.Tensor):
         """(sigma (N,), rgb (N, 3)) from positions and view directions."""
-        dn = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        sh = sh_encode((dn + 1.0) * 0.5, self.cfg.sh_degree)
+        return self._field(x, self._sh(d))
+
+    def forward_rays(self, xyz: torch.Tensor, rays_d: torch.Tensor):
+        """Strided-layout field (ngp_pl_tpu/models/ngp.py:195-259): xyz
+        (N, S, 3) positions of S samples on each of N rays with directions
+        rays_d (N, 3) -> (sigma (N, S), rgb (N, S, 3)).  The direction is
+        constant along a ray, so its SH is computed once per ray and
+        broadcast to the N*S rows the field tail reads."""
+        N, S = xyz.shape[0], xyz.shape[1]
+        sh = self._sh(rays_d)[:, None, :].expand(N, S, -1)
+        sigma, rgb = self._field(xyz.reshape(N * S, 3),
+                                 sh.reshape(N * S, -1))
+        return sigma.reshape(N, S), rgb.reshape(N, S, 3)
+
+    def _field(self, x: torch.Tensor, sh: torch.Tensor):
+        """Encode + field tail of positions x (P, 3) with their SH (P, 16):
+        differentiable when autograd records it (see the module note)."""
         ws = (self.sigma_mlp[1], self.rgb_mlp[0], self.rgb_mlp[1],
               self.rgb_mlp[2])
         if torch.is_grad_enabled() and self.hash_table.requires_grad:

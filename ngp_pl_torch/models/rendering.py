@@ -1,11 +1,17 @@
 """Rendering (counterpart of ngp_pl_tpu/models/rendering.py; reference
-models/rendering.py): the differentiable CSR train render
-(`render_rays_train_csr`, reference rendering.py:121-163) and test-view
+models/rendering.py): the differentiable train renders in the JAX
+package's three layouts (reference rendering.py:121-163) and test-view
 rendering (span pre-pass, cull and the alive-ray round loop,
 `RoundRenderer`, reference rendering.py:46-118).
 
-Train render: scene-box hits -> windowed march into the flat pool ->
-field (K1 + K7, differentiable) -> CSR compositor -> background.
+Train render: scene-box hits -> windowed march -> field (K1 + K7,
+differentiable) -> compositor -> background, into
+- the CSR pool (`render_rays_train_csr`): a flat pool shared by need;
+- the strided block (`render_rays_train`): the first S samples of each ray
+  in its own row, rays with more dropped from the loss (`loss_mask`);
+- rounds (`render_rays_train_rounds`): four windowed test rounds of
+  shrinking slot counts over the alive rays, with the transmittance and
+  the distortion's prefix sums carried across rounds.
 
 A frame goes: scene-box hits -> occupied-span pre-pass over a dilated
 super-grid -> cull of rays with no occupied span -> chunks of the surviving
@@ -34,15 +40,19 @@ from ngp_pl_torch.config import MAX_SAMPLES, NEAR_DISTANCE, SQRT3, RenderConfig
 from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.ops.intersection import ray_aabb_intersect_single
 from ngp_pl_torch.ops.ray_march import (
+    _f32,
     _fma,
     march_rays_test_round,
+    march_rays_train_strided,
     march_rays_train_window,
     occupied_span,
     occupied_span_prep,
 )
 from ngp_pl_torch.ops.volume_render import (
+    SD_CLAMP,
     composite_test_round,
     composite_train,
+    composite_train_strided,
 )
 
 MAX_ROUNDS = 512     # per chunk, as the JAX package's renderer
@@ -102,11 +112,7 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     parameters; positions are o + t * d with t and the rays held fixed.
     Returns the compositor's outputs plus the pool and the march's demand
     statistics."""
-    cfg = ngp.cfg
-    if cfg.cascades != 1 or cfg.exp_step_factor != 0.0:
-        raise NotImplementedError(
-            "the train render covers single-cascade scenes (scale <= 0.5); "
-            "multi-cascade / exp stepping is a later slice")
+    cfg = _train_cfg(ngp)
     N = rays_o.shape[0]
     hits = scene_hits(rays_o, rays_d, cfg.scale)
     chain = chain_length or rcfg.max_samples
@@ -123,12 +129,165 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     out = composite_train(sigmas, rgbs, m.deltas, m.ts, m.ray_idx, m.valid,
                           m.offsets, n_rays=N, T_threshold=rcfg.t_threshold)
     out["rgb"] = out["rgb"] + bg_rgb[None, :] * (1.0 - out["opacity"][:, None])
-    out.update(ts=m.ts, ray_idx=m.ray_idx, offsets=m.offsets,
+    out.update(deltas=m.deltas, ts=m.ts, ray_idx=m.ray_idx,
+               pool_valid=m.valid, offsets=m.offsets,
                rm_samples=m.total, rm_counts=m.rm_counts,
                chain_demand=m.chain_demand, chain_demand_q=m.chain_demand_q,
                vr_counts=out["vr_samples"],
                vr_samples=out["vr_samples"].sum())
     return out
+
+
+def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
+                      rcfg: RenderConfig, n_samples: Optional[int] = None,
+                      chain_length: int = 0) -> Dict[str, torch.Tensor]:
+    """Differentiable train render into the strided (N, S) layout,
+    windowed-march branch (rendering.py:103-183).  A ray with more than S
+    occupied samples is cut by the march and left out of the loss
+    (`loss_mask`): a partial render would bias it towards its entry slab.
+    Invalid slots sit at their ray's origin (t = 0) with zero weight."""
+    cfg = _train_cfg(ngp)
+    S = n_samples or rcfg.train_pool_mult
+    hits = scene_hits(rays_o, rays_d, cfg.scale)
+    with torch.no_grad():
+        m = march_rays_train_strided(
+            rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
+            grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
+            n_samples=S, chain_length=chain_length or rcfg.max_samples)
+    xyz = _fma(m.ts[..., None], rays_d[:, None, :], rays_o[:, None, :])
+    sigmas, rgbs = ngp.forward_rays(xyz, rays_d)
+    out = composite_train_strided(sigmas, rgbs, m.deltas, m.ts, m.valid,
+                                  T_threshold=rcfg.t_threshold)
+    out["rgb"] = out["rgb"] + bg_rgb[None, :] * (1.0 - out["opacity"][:, None])
+    out.update(loss_mask=m.rm_counts <= S, deltas=m.deltas, ts=m.ts,
+               valid=m.valid, rm_samples=m.total, rm_counts=m.rm_counts,
+               chain_demand=m.chain_demand, chain_demand_q=m.chain_demand_q,
+               vr_counts=out["vr_samples"],
+               vr_samples=out["vr_samples"].sum())
+    return out
+
+
+def _at_rows(full, raw, delta, add: bool):
+    """`full.at[raw].add(delta)` (or `.set`) with JAX's mode="drop": the
+    sentinel raw == N lands in a padding row that is cut off.  Out of place,
+    so a tensor that autograd saved is never written."""
+    pad = torch.cat([full, full.new_zeros((1,) + full.shape[1:])])
+    if add:
+        return pad.index_add(0, raw, delta)[:-1]
+    return pad.index_copy(0, raw, delta)[:-1]
+
+
+def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
+                             *, rcfg: RenderConfig, n_samples: int = 16,
+                             chain_length: int = 256, n_rounds: int = 4,
+                             lambda_distortion: float = 0.0
+                             ) -> Dict[str, torch.Tensor]:
+    """Differentiable train render in `n_rounds` rounds
+    (rendering.py:308-478).  Round r gives max(256, N >> r) slots to the
+    alive rays, compacted to the front in ray order (sentinel N past them),
+    marches S occupied samples of each with the windowed test round from
+    its cursor, and composites them onto the carried transmittance; rgb,
+    depth, opacity and T stay differentiable across rounds.  A ray alive
+    past a round's slots, or after the last round, is left out of the
+    loss.  With `lambda_distortion` the DVGO distortion accumulates per
+    round from the carried prefix sums of w and w t.  Writes to the
+    per-ray state use the unclamped sentinel: clamping it onto ray N - 1
+    would collide with that ray's own write."""
+    cfg = _train_cfg(ngp)
+    N = rays_o.shape[0]
+    S = n_samples
+    dev = rays_o.device
+    thr = rcfg.t_threshold
+    hits = scene_hits(rays_o, rays_d, cfg.scale)
+    t1, t_end = hits[:, 0], hits[:, 1]
+    t_cur = torch.where(
+        t1 >= 0, _fma(noise, _f32(SQRT3 / rcfg.max_samples), t1), t_end)
+    T = torch.ones(N, device=dev)
+    rgb = torch.zeros((N, 3), device=dev)
+    depth = torch.zeros(N, device=dev)
+    opacity = torch.zeros(N, device=dev)
+    dist = torch.zeros(N, device=dev)
+    ws_in = torch.zeros(N, device=dev)     # running sum of w
+    wts_in = torch.zeros(N, device=dev)    # running sum of w * t
+    alive = t1 >= 0
+    vr_counts = torch.zeros(N, dtype=torch.int32, device=dev)
+    rm_counts = torch.zeros(N, dtype=torch.int32, device=dev)
+    dropped = torch.zeros(N, dtype=torch.bool, device=dev)
+    total_slots = 0
+    for r in range(n_rounds):
+        slots = max(256, N >> r)
+        total_slots += slots
+        # the j-th alive ray in ray order, N past the last
+        alive_csum = torch.cumsum(alive, dim=0)
+        raw = torch.searchsorted(alive_csum, torch.arange(
+            1, min(slots, N) + 1, device=dev))
+        idx = torch.clamp_max(raw, N - 1)
+        sel = raw < N
+        dropped = dropped | (alive & (alive_csum > slots))
+
+        ro, rd = rays_o[idx], rays_d[idx]
+        with torch.no_grad():
+            ts, dts, valid, t_next, n_eff = march_rays_test_round(
+                ro, rd, t_cur[idx], t_end[idx], None, cascades=1,
+                scale=cfg.scale, exp_step_factor=0.0,
+                grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
+                n_samples=S, chain_length=chain_length, win_rows=win_rows)
+        valid = valid & sel[:, None]
+        xyz = _fma(ts[..., None], rd[:, None, :], ro[:, None, :])
+        sigmas, rgbs = ngp.forward_rays(xyz, rd)
+
+        sd = torch.where(valid, torch.clamp_max(sigmas * dts, SD_CLAMP), 0.0)
+        excl = torch.cumsum(sd, dim=1) - sd
+        T0 = T[idx]
+        T_s = T0[:, None] * torch.exp(-excl)
+        alpha = 1.0 - torch.exp(-sd)
+        keep = valid & (T_s > thr)
+        w = torch.where(keep, alpha * T_s, 0.0)
+        if lambda_distortion > 0:
+            wt = w * ts
+            ws_ex = torch.cumsum(w, dim=1) - w + ws_in[idx][:, None]
+            wts_ex = torch.cumsum(wt, dim=1) - wt + wts_in[idx][:, None]
+            per_s = (2.0 * ((wts_ex + wt) * ws_ex - (ws_ex + w) * wts_ex)
+                     + (w * w * dts) / 3.0)
+            dist = _at_rows(dist, raw, per_s.sum(dim=1), add=True)
+            ws_in = _at_rows(ws_in, raw, w.sum(dim=1), add=True)
+            wts_in = _at_rows(wts_in, raw, wt.sum(dim=1), add=True)
+
+        rgb = _at_rows(rgb, raw, (w[:, :, None] * rgbs).sum(dim=1), add=True)
+        depth = _at_rows(depth, raw, (w * ts).sum(dim=1), add=True)
+        opacity = _at_rows(opacity, raw, w.sum(dim=1), add=True)
+        T_new = T0 * torch.exp(-sd.sum(dim=1))
+        T = _at_rows(T, raw, T_new, add=False)
+        t_cur = _at_rows(t_cur, raw, t_next, add=False)
+        vr_counts = _at_rows(vr_counts, raw,
+                             keep.sum(dim=1, dtype=torch.int32), add=True)
+        rm_counts = _at_rows(rm_counts, raw, n_eff.to(torch.int32), add=True)
+        still = sel & (T_new.detach() > thr) & (t_next < t_end[idx])
+        alive = _at_rows(torch.zeros_like(alive), raw, still, add=False)
+
+    loss_mask = ~(dropped | alive)
+    return {
+        "rgb": rgb + bg_rgb[None, :] * (1.0 - opacity[:, None]),
+        "depth": depth, "opacity": opacity, "distortion": dist,
+        "loss_mask": loss_mask, "rm_samples": rm_counts.sum(),
+        "rm_counts": rm_counts, "vr_counts": vr_counts,
+        "vr_samples": vr_counts.sum(),
+        # rays still alive wanted more rounds; reported like the one-shot
+        # marches' demand so the budget feedback keeps working
+        "chain_demand": torch.tensor(chain_length * n_rounds, device=dev),
+        "chain_demand_q": torch.tensor(chain_length, device=dev),
+        "rounds_alive_end": alive.sum(),
+        "total_slots": torch.tensor(total_slots, device=dev),
+    }
+
+
+def _train_cfg(ngp):
+    cfg = ngp.cfg
+    if cfg.cascades != 1 or cfg.exp_step_factor != 0.0:
+        raise NotImplementedError(
+            "the train render covers single-cascade scenes (scale <= 0.5); "
+            "multi-cascade / exp stepping is a later slice")
+    return cfg
 
 
 def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:

@@ -1,6 +1,6 @@
 """Occupancy-guided ray marching (counterpart of the test round, the occupied
-span and the windowed train march of ngp_pl_tpu/ops/ray_march.py; reference
-models/csrc/raymarching.cu).
+span and the windowed train marches, CSR and strided, of
+ngp_pl_tpu/ops/ray_march.py; reference models/csrc/raymarching.cu).
 
 The dt-chain has a closed form, so the k-th marching position of a ray is a
 function of (t_start, k) alone; a round evaluates the chain for all (ray, k)
@@ -19,7 +19,8 @@ CUDA PyTorch turns `tensor / python_float` into a multiply by the
 reciprocal (and `python_float / tensor` is a reciprocal on both devices),
 which can move a sample by one ulp.
 
-The train march must give the JAX package's pool bit for bit: one ulp at a
+The train marches, and the test round as the train rounds call it (with
+`win_rows`), must give the JAX package's samples bit for bit: one ulp at a
 cell edge flips an occupancy bit and shifts every later slot.  XLA fuses
 `t0 + k * dt_min` and `o + t * d` into fused multiply-adds (one rounding);
 `_fma` reproduces that on both devices in float64, where these products and
@@ -95,24 +96,50 @@ def occupancy_at(occ_grid, xyz, cascades, scale, grid_size):
 
 def march_rays_test_round(rays_o, rays_d, t_start, t_end, occ_grid, *,
                           cascades, scale, exp_step_factor, grid_size,
-                          max_samples, n_samples, chain_length):
+                          max_samples, n_samples, chain_length,
+                          win_rows=None):
     """One inference marching round (reference raymarching.cu:335-454).
 
     Returns (ts (N, S), deltas (N, S), valid (N, S) bool, t_next (N,),
     n_eff (N,)).  `t_next` is the resume cursor: just past the S-th occupied
     sample, else the chain position after the last examined step.  Slots
-    past n_eff hold finite placeholder positions and are not valid."""
+    past n_eff hold finite placeholder positions and are not valid.
+
+    With `win_rows` (single cascade, uniform steps, chain a multiple of 8;
+    the train rounds) the bits come from `_occ_window_chain` and every
+    chain position is one fused multiply-add, as in the JAX package's
+    windowed branch (ngp_pl_tpu/ops/ray_march.py:213-227), so valid, n_eff
+    and t_next are its bits; `occ_grid` is then unused."""
     K, S = chain_length, n_samples
     dt_min = SQRT3 / max_samples
     dt_max = SQRT3 * 2.0 * scale / grid_size
     dev = rays_o.device
 
+    if win_rows is not None:
+        if cascades != 1 or exp_step_factor != 0.0 or K % SEGMENT_J:
+            raise NotImplementedError(
+                "the windowed round covers single-cascade, uniform-step "
+                "scenes with a chain that is a multiple of 8")
+
+        def chain(t0, k):
+            return _fma(k, _f32(dt_min), t0)
+    else:
+        def chain(t0, k):
+            return chain_t(t0, k, exp_step_factor, dt_min, dt_max)
+
     k = torch.arange(K + 1, dtype=torch.float32, device=dev)[None, :]
-    ts_all = chain_t(t_start[:, None], k, exp_step_factor, dt_min, dt_max)
+    ts_all = chain(t_start[:, None], k)
     ts = ts_all[:, :K]
     in_range = (ts < t_end[:, None]) & (t_start[:, None] >= 0)
-    xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
-    occ = occupancy_at(occ_grid, xyz, cascades, scale, grid_size) & in_range
+    if win_rows is not None:
+        occ, _ = _occ_window_chain(rays_o, rays_d, t_start, K // SEGMENT_J,
+                                   win_rows, scale=scale,
+                                   grid_size=grid_size, dt_min=dt_min)
+        occ = occ.reshape(-1, K) & in_range
+    else:
+        xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
+        occ = occupancy_at(occ_grid, xyz, cascades, scale, grid_size) \
+            & in_range
 
     # first-S selection: the (s+1)-th occupied step is the first index
     # where the running count reaches s+1
@@ -122,15 +149,16 @@ def march_rays_test_round(rays_o, rays_d, t_start, t_end, occ_grid, *,
     k_idx = torch.searchsorted(
         csum, (s_row + 1).expand(csum.shape[0], S).contiguous())  # (N, S)
     valid = s_row[None, :] < n_eff[:, None]
-    ts_s = chain_t(t_start[:, None], k_idx.to(torch.float32),
-                   exp_step_factor, dt_min, dt_max)
+    ts_s = chain(t_start[:, None], k_idx.to(torch.float32))
     dts_s = torch.clamp(ts_s * exp_step_factor, dt_min, dt_max)
 
     last_k = torch.where(valid, k_idx, -1).amax(dim=1)
+    # the cursor past the S-th sample is two roundings in the JAX package
+    # with or without windows: XLA does not fuse this product and sum,
+    # which follow a reduction
     last_t = torch.where(
-        n_eff >= S,
-        chain_t(t_start, (last_k + 1).to(torch.float32), exp_step_factor,
-                dt_min, dt_max),
+        n_eff >= S, chain_t(t_start, (last_k + 1).to(torch.float32),
+                            exp_step_factor, dt_min, dt_max),
         ts_all[:, K])
     t_next = torch.minimum(last_t, t_end)
     return ts_s, dts_s, valid, t_next, n_eff
@@ -403,5 +431,65 @@ def march_rays_train_window(rays_o, rays_d, hits_t, noise, win_rows, *,
     pool = _compact_to_pool(occ, t0, max_samples, pool_size, dt_min)
     return MarchResults(*pool[:4], counts=pool[4], offsets=pool[5],
                         total=pool[6], rm_counts=pool[7],
+                        chain_demand=per_ray_need.max(),
+                        chain_demand_q=q99(per_ray_need))
+
+
+class StridedMarch(NamedTuple):
+    """Per-ray strided sample block of the JAX package's `StridedMarch`:
+    ray r owns row r of each (N, S) array, its first S occupied samples
+    front to back; a ray with more is cut, never dropped by the batch."""
+
+    ts: torch.Tensor             # (N, S) sample distances, 0 on invalid slots
+    deltas: torch.Tensor         # (N, S)
+    valid: torch.Tensor          # (N, S) bool
+    counts: torch.Tensor         # (N,) samples kept (<= S)
+    rm_counts: torch.Tensor      # (N,) occupied samples found (pre-clip)
+    total: torch.Tensor          # () kept samples of the batch
+    chain_demand: torch.Tensor   # () chain steps the batch needs
+    chain_demand_q: torch.Tensor  # () 99th percentile of the per-ray need
+
+
+def march_rays_train_strided(rays_o, rays_d, hits_t, noise, win_rows, *,
+                             scale: float, grid_size: int, max_samples: int,
+                             n_samples: int,
+                             chain_length: int) -> StridedMarch:
+    """Windowed occupancy march of a train batch into the strided (N, S)
+    layout (ngp_pl_tpu/ops/ray_march.py:1040-1131, its single-cascade,
+    uniform-step window branch): the chain of `march_rays_train_window`,
+    rounded up to 32 steps, and per ray the first S occupied steps, found
+    by a cumsum and a sorted search where the TPU counts bits in groups.
+    Valid under `segment_march_dmax_ok`."""
+    N = rays_o.shape[0]
+    S = n_samples
+    K = -(-chain_length // 32) * 32
+    dt_min = SQRT3 / max_samples
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    hit = t1 >= 0
+    t0 = _fma(noise, _f32(dt_min), t1)
+    occ, ts_all = _occ_window_chain(rays_o, rays_d, t0, K // SEGMENT_J,
+                                    win_rows, scale=scale,
+                                    grid_size=grid_size, dt_min=dt_min)
+    ts_all = ts_all.reshape(N, K)
+    occ = occ.reshape(N, K) & hit[:, None] & (ts_all >= 0) & (
+        ts_all < t2[:, None])
+    del ts_all
+
+    kk1 = torch.arange(1, K + 1, dtype=torch.int32, device=occ.device)
+    per_ray_need = torch.where(occ, kk1, 0).amax(dim=1)
+    csum = torch.cumsum(occ, dim=1)                             # (N, K)
+    rm_counts = csum[:, -1].to(torch.int32)
+    counts = torch.clamp_max(rm_counts, S)
+    s_row = torch.arange(S, device=occ.device)
+    k_idx = torch.searchsorted(
+        csum, (s_row + 1).expand(N, S).contiguous())            # K if none
+    valid = s_row[None, :] < counts[:, None]
+    ts = torch.where(valid, _fma(k_idx.to(torch.float32), _f32(dt_min),
+                                 t0[:, None]), 0.0)
+    deltas = torch.full((N, S), dt_min, dtype=torch.float32,
+                        device=occ.device)
+    return StridedMarch(ts=ts, deltas=deltas, valid=valid, counts=counts,
+                        rm_counts=rm_counts,
+                        total=counts.sum(dtype=torch.int32),
                         chain_demand=per_ray_need.max(),
                         chain_demand_q=q99(per_ray_need))

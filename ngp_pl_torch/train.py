@@ -1,9 +1,14 @@
 """Train the field and score the test views (counterpart of train.py;
-reference train.py __main__), the CSR layout on the procedural synthetic
-scene.  Runs on the card unless `--device cpu` is given.
+reference train.py __main__) on the procedural synthetic scene, in the
+sample layout of `--train_layout` (auto, the default, as the JAX
+package's: CSR through grid warmup, then strided or CSR by the demand;
+or pinned to csr, strided or rounds), with `--distortion_loss_w` for the
+distortion loss.  Runs on the card unless `--device cpu` is given.
 
     python -m ngp_pl_torch.train --dataset_name synthetic --num_epochs 1 \\
         --iters_per_epoch 512
+    python -m ngp_pl_torch.train --train_layout rounds \\
+        --distortion_loss_w 1e-2 --num_epochs 1 --iters_per_epoch 512
     python -m ngp_pl_torch.train --device cpu --n_levels 4 \\
         --log2_hashmap_size 12 --batch_size 256 --downsample 0.1875 \\
         --num_epochs 1 --iters_per_epoch 32

@@ -4,14 +4,16 @@ ngp_pl_tpu/training/system.py:48-473; reference train.py:53-294).
 A host loop around eager steps on the card: the occupancy grid is refreshed
 every 16 steps (every cell during the first 256 steps, then a quarter of
 them in turn), batches are drawn on the device from the resident ray store,
-and the CSR pool's size (`_pool_mult`) and the march's chain length follow
-the observed demand, read one interval late (`_consume_demand`).
+and the layout, its sample budget (`_pool_mult`: the CSR pool's multiple of
+the batch, or S of the strided and rounds layouts) and the march's chain
+length follow the observed demand, read one interval late
+(`_consume_demand`).  "auto", the default, trains in CSR through grid
+warmup and then in the strided layout wherever a bucket covers the q99
+per-ray demand at no more than 1.37x the mean's, else in CSR; "csr",
+"strided" and "rounds" pin one layout.
 
-The port covers the CSR layout with the windowed march, the layout and
-march the JAX package trains the flagship scene with through grid warmup;
-its "auto" mode may move to the strided layout afterwards.  The strided and
-rounds layouts, "auto", and scenes that need the multi-cascade march raise
-NotImplementedError.
+Every march is the windowed single-cascade one; scenes that need the
+multi-cascade march and random backgrounds raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -51,15 +53,15 @@ from ngp_pl_torch.training.train_step import (
     train_step,
 )
 
+LAYOUTS = ("auto", "csr", "strided", "rounds")
+
 
 class NeRFSystem:
     def __init__(self, tcfg: TrainConfig, train_dataset=None,
                  test_dataset=None, device="cuda"):
-        if tcfg.train_layout != "csr":
-            raise NotImplementedError(
-                f"train_layout={tcfg.train_layout!r}: the port has the CSR "
-                "layout only; the strided and rounds layouts and 'auto' are "
-                "the next slice (ROADMAP)")
+        if tcfg.train_layout not in LAYOUTS:
+            raise ValueError(f"train_layout={tcfg.train_layout!r}: one of "
+                             f"{LAYOUTS}")
         if tcfg.random_bg:
             raise NotImplementedError(
                 "random_bg applies to exp-stepping scenes (scale > 0.5), a "
@@ -114,12 +116,18 @@ class NeRFSystem:
         self.history: list = []
         self._host_step = 0
 
-        # demand controller (system.py:164-250), CSR branch
+        # demand controller (system.py:164-250)
         self._pool_buckets = (8, 16, 24, 32, 40, 48, 56, 64)
         self._pool_mult = self.rcfg.train_pool_mult
         self._pool_demand = 0.0
-        self.layout = "csr"
+        # "auto" starts in CSR: every chain step is occupied in warmup
+        self.layout = ("csr" if tcfg.train_layout == "auto"
+                       else tcfg.train_layout)
+        self._layout_vote = 0
         self._shrink_votes = 0
+        self._rounds_buckets = (8, 16, 24, 32)
+        # (first step, layout) of each stretch of training in one layout
+        self.layout_log = [(0, self.layout)]
         self.chain_full = compute_scene_chain_length(
             self.train_dataset.poses, self.train_dataset.directions,
             self.cfg.scale, self.rcfg.max_samples)
@@ -128,6 +136,9 @@ class NeRFSystem:
             for f in (0.25, 0.5, 0.75, 1.0)})
         self.chain_length = self._chain_buckets[-1]
         self._chain_demand = float(self.chain_length)
+        # per-round chain of the rounds layout: the cursor resumes across
+        # rounds, so a round needs only its local skip and S samples
+        self._rounds_chain = min(384, max(128, -(-self.chain_full // 8) * 8))
         self._pending_demand = None
 
     # -- setup ------------------------------------------------------------
@@ -157,8 +168,14 @@ class NeRFSystem:
         return train_step(self.ngp, self.optimizer, self.grid_state.win_rows,
                           rays_o.contiguous(), rays_d.contiguous(), target,
                           noise, self.bg, tcfg=tcfg, rcfg=self.rcfg,
-                          pool_mult=self._pool_mult,
-                          chain_length=self.chain_length)
+                          n_samples=self._pool_mult,
+                          chain_length=self.step_chain(), layout=self.layout)
+
+    def step_chain(self) -> int:
+        """The chain a step marches: per round under rounds
+        (system.py:293-294, 463-464)."""
+        return (self._rounds_chain if self.layout == "rounds"
+                else self.chain_length)
 
     def step(self) -> Dict[str, torch.Tensor]:
         """One step (system.py:281-315): a grid refresh first at every
@@ -195,11 +212,10 @@ class NeRFSystem:
         return self._pool_buckets[-1]
 
     def _consume_demand(self, metrics):
-        """Re-bucket pool and chain from the demand vector of the previous
-        interval (system.py:323-443, CSR branch): the vector is copied to
-        the host asynchronously and read one interval late, so the host
-        never waits for the block it just queued.  Pool growth applies at
-        once; a shrink needs two agreeing intervals."""
+        """Re-bucket layout, budget and chain from the demand vector of the
+        previous interval (system.py:323-443): the vector is copied to the
+        host asynchronously and read one interval late, so the host never
+        waits for the block it just queued."""
         dv = torch.as_tensor(metrics["demand_vec"])
         if dv.is_cuda:
             host = torch.empty(dv.shape, dtype=dv.dtype, pin_memory=True)
@@ -214,15 +230,43 @@ class NeRFSystem:
             return
         if prev[1] is not None:
             prev[1].synchronize()
-        (_, _, chain_q, _, _, _, _, _, rm_mean_pre) = (
+        (_, _, chain_q, rm_q, _, _, vr_mean, alive_end, rm_mean_pre) = (
             float(v) for v in np.nan_to_num(
                 prev[0].numpy(), posinf=0.0, neginf=0.0))
         # during grid warmup every chain step is occupied: hold the budget
         if self._host_step <= self.tcfg.grid_warmup_steps:
             return
-        # size from the pre-clip per-ray mean, headroom 1.15 + 2
-        want = rm_mean_pre * 1.15 + 2.0
-        self._pool_demand = max(0.8 * self._pool_demand, want)
+        mode = self.tcfg.train_layout
+        if mode == "rounds":
+            self._consume_rounds(vr_mean, alive_end)
+            return                       # the chain stays at _rounds_chain
+        # every occupied sample needs its gradient, so the budget covers the
+        # occupied counts: the strided row the q99 of a ray's, the CSR pool
+        # the pre-clip per-ray mean (headroom 1.15 + 2)
+        want_mean = rm_mean_pre * 1.15 + 2.0
+        want_tail = rm_q * 1.05
+        if mode in ("csr", "strided"):
+            target = mode
+            want = want_tail if mode == "strided" else want_mean
+        elif (want_tail <= self._pool_buckets[-1]
+              and self._pick_bucket(want_tail)
+              <= 1.37 * self._pick_bucket(want_mean)):
+            # auto: strided costs ~1/1.37 of CSR per slot, but drops the
+            # rays past S from the loss; only where a bucket covers the tail
+            target, want = "strided", want_tail
+        else:
+            target, want = "csr", want_mean
+        if target != self.layout:
+            self._layout_vote += 1
+            if self._layout_vote >= 2:      # hysteresis: 2 intervals agree
+                self.layout = target
+                self._layout_vote = 0
+                self._pool_demand = want
+        else:
+            self._layout_vote = 0
+        if target == self.layout:
+            self._pool_demand = max(0.8 * self._pool_demand, want)
+        # growth applies at once; a shrink needs two agreeing intervals
         new_mult = self._pick_bucket(self._pool_demand)
         if new_mult >= self._pool_mult:
             self._pool_mult = new_mult
@@ -240,6 +284,21 @@ class NeRFSystem:
         else:
             self.chain_length = self._chain_buckets[-1]
 
+    def _consume_rounds(self, vr_mean: float, alive_end: float):
+        """The rounds branch: S follows the mean effective demand with
+        headroom, growing while more than a tenth of the batch is still
+        alive after the last round."""
+        want = vr_mean * 0.9 + 4.0
+        if alive_end > 0.10 * self.tcfg.batch_size:
+            want = max(want, self._pool_mult + 8.0)
+        self._pool_demand = max(0.8 * self._pool_demand, want)
+        for m in self._rounds_buckets:
+            if m >= self._pool_demand:
+                self._pool_mult = m
+                break
+        else:
+            self._pool_mult = self._rounds_buckets[-1]
+
     def fit(self, max_steps: Optional[int] = None,
             log_every: Optional[int] = None, quiet: bool = False):
         """Train `max_steps` steps (system.py:475-522): 16-step blocks when
@@ -256,15 +315,26 @@ class NeRFSystem:
             for i in range(max_steps // nb):
                 metrics = self.step_block()
                 skipped = skipped + metrics["n_skipped"]
+                self._note_layout(quiet)
                 if ((i + 1) * nb) % log_every == 0 or i == 0:
                     self._log_fit(metrics, (i + 1) * nb, t0, quiet, skipped)
             return self.history
         for i in range(max_steps):
             metrics = self.step()
             skipped = skipped + metrics["n_skipped"]
+            self._note_layout(quiet)
             if (i + 1) % log_every == 0 or i == 0:
                 self._log_fit(metrics, i + 1, t0, quiet, skipped)
         return self.history
+
+    def _note_layout(self, quiet: bool):
+        """Record (and print) the step from which the next steps run in
+        another layout."""
+        if self.layout != self.layout_log[-1][1]:
+            self.layout_log.append((self._host_step, self.layout))
+            if not quiet:
+                print(f"step {self._host_step:6d} layout {self.layout} "
+                      f"x{self._pool_mult}", flush=True)
 
     def _log_fit(self, metrics, steps_done, t0, quiet, skipped):
         m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
@@ -274,13 +344,14 @@ class NeRFSystem:
             torch.cuda.synchronize(self.dev)
         m["seconds"] = time.time() - t0
         m["rays_per_s"] = self.tcfg.batch_size * steps_done / m["seconds"]
+        m["layout"] = self.layout
         m["pool_mult"] = self._pool_mult
-        m["chain_length"] = self.chain_length
+        m["chain_length"] = self.step_chain()
         self.history.append(m)
         if not quiet:
             print(f"step {m['step']:6d} loss {m['loss']:.4f} "
-                  f"psnr {m['psnr']:.2f} rm_s "
-                  f"{m['rm_samples'] / self.tcfg.batch_size:.1f} "
+                  f"psnr {m['psnr']:.2f} {m['layout']} x{m['pool_mult']} "
+                  f"rm_s {m['rm_samples'] / self.tcfg.batch_size:.1f} "
                   f"{m['rays_per_s']:.0f} rays/s "
                   f"skipped {m['skipped_total']}", flush=True)
 

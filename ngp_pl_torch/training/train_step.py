@@ -2,8 +2,9 @@
 ngp_pl_tpu/training/train_step.py; reference train.py:159-185).
 
 A step: batch (image, pixel) indices drawn on the device from the resident
-ray store -> rays -> CSR train render -> rgb MSE + opacity entropy ->
-gradients -> Adam with the per-epoch cosine lr and the non-finite skip.
+ray store -> rays -> train render in the step's layout (CSR, strided or
+rounds) -> rgb MSE + opacity entropy (+ distortion) -> gradients -> Adam
+with the per-epoch cosine lr and the non-finite skip.
 PyTorch runs it eagerly; nothing in a step reads a value back to the host,
 so a block of steps queues on the card without a sync.
 
@@ -23,7 +24,11 @@ import numpy as np
 import torch
 
 from ngp_pl_torch.config import RenderConfig, TrainConfig
-from ngp_pl_torch.models.rendering import render_rays_train_csr
+from ngp_pl_torch.models.rendering import (
+    render_rays_train,
+    render_rays_train_csr,
+    render_rays_train_rounds,
+)
 from ngp_pl_torch.ops.ray_march import q99, qtile
 from ngp_pl_torch.training.losses import nerf_loss, total_loss
 
@@ -107,17 +112,50 @@ def sample_batch(rays_store: torch.Tensor, batch_size: int, strategy: str,
     return img, pix, rays_store[img, pix]
 
 
+def train_render(ngp, win_rows, rays_o, rays_d, noise, bg, *,
+                 tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
+                 chain_length: int, layout: str = "csr"):
+    """The render of a train step in `layout` and its loss (`loss_fn`,
+    train_step.py:131-163): "csr" (`n_samples` is the pool's multiple of
+    the batch), "strided" (S, the width of each ray's row) or "rounds" (S
+    per round, 16 and a 512-step chain by default).  Returns the render's
+    outputs and a function of the targets that gives the loss."""
+    if layout == "csr":
+        results = render_rays_train_csr(
+            ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
+            pool_mult=n_samples or None, chain_length=chain_length)
+    elif layout == "rounds":
+        results = render_rays_train_rounds(
+            ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
+            n_samples=n_samples or 16, chain_length=chain_length or 512,
+            lambda_distortion=tcfg.distortion_loss_w)
+    elif layout == "strided":
+        results = render_rays_train(
+            ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
+            n_samples=n_samples or None, chain_length=chain_length)
+    else:
+        raise ValueError(f"unknown train layout {layout!r}")
+
+    def loss_of(target):
+        return total_loss(nerf_loss(
+            results, target, lambda_opacity=tcfg.opacity_loss_w,
+            lambda_distortion=tcfg.distortion_loss_w))
+
+    return results, loss_of
+
+
 def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
-               *, tcfg: TrainConfig, rcfg: RenderConfig, pool_mult: int,
-               chain_length: int) -> Dict[str, torch.Tensor]:
-    """One CSR train step (`loss_fn` + `_step_core`, train_step.py:106-265)
-    from given rays, targets, march noise (B,) and background (3,).
-    Returns device metrics, among them the packed demand vector."""
-    results = render_rays_train_csr(
-        ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
-        pool_mult=pool_mult, chain_length=chain_length)
-    loss = total_loss(nerf_loss(results, target,
-                                lambda_opacity=tcfg.opacity_loss_w))
+               *, tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
+               chain_length: int, layout: str = "csr"
+               ) -> Dict[str, torch.Tensor]:
+    """One train step (`loss_fn` + `_step_core`, train_step.py:106-265)
+    from given rays, targets, march noise (B,) and background (3,), in
+    `layout` with its budget `n_samples` (see `train_render`).  Returns
+    device metrics, among them the packed demand vector."""
+    results, loss_of = train_render(
+        ngp, win_rows, rays_o, rays_d, noise, bg, tcfg=tcfg, rcfg=rcfg,
+        n_samples=n_samples, chain_length=chain_length, layout=layout)
+    loss = loss_of(target)
     grads = torch.autograd.grad(loss, opt.params)
     finite = opt.step(grads)
     rgb = results["rgb"].detach()
@@ -130,7 +168,8 @@ def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
         "vr_counts_q": q99(vr_counts),
         "vr_counts_q90": qtile(vr_counts, 0.90),
         "vr_counts_mean": vr_counts.to(torch.float32).mean(),
-        "rounds_alive_end": torch.zeros((), device=rgb.device),
+        "rounds_alive_end": results.get(
+            "rounds_alive_end", torch.zeros((), device=rgb.device)),
         "rm_counts_mean": rm_counts.to(torch.float32).mean(),
     }
     return {
@@ -143,6 +182,12 @@ def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
         "rm_counts_max": rm_counts.max(),
         "chain_demand": results["chain_demand"],
         "chain_demand_q": results["chain_demand_q"],
+        # share of the batch outside the loss (strided, rounds)
+        "dropped_share": 1.0 - results["loss_mask"].to(torch.float32).mean()
+        if "loss_mask" in results else torch.zeros((), device=rgb.device),
+        "rounds_alive_end": aux["rounds_alive_end"],
+        "total_slots": results.get("total_slots",
+                                   torch.zeros((), device=rgb.device)),
         "demand_vec": torch.stack([aux[k].to(torch.float32)
                                    for k in DEMAND_KEYS]),
     }

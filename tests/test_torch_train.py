@@ -4,7 +4,8 @@ the occupancy refresh of training (sublattice phases, erosion), the CSR
 compositor and the losses, one whole train step (loss, gradients, Adam
 update, from a carried-over train state), the non-finite skip, the demand
 controller, the lr schedule and batch sampling; and a two-block run of the
-port alone.
+port alone.  One train step is also held against JAX's in the strided and
+rounds layouts (tests/test_torch_layouts.py holds their parts).
 
 Sizes: grid 32, L=4, log2 T=12, 256 rays, pool x8.  Inputs are made with
 numpy from a seed and fed to both packages."""
@@ -26,6 +27,7 @@ from ngp_pl_tpu.config import TrainConfig as JaxTrainConfig
 from ngp_pl_tpu.datasets.ray_utils import get_rays as jax_get_rays
 from ngp_pl_tpu.datasets.synthetic import SyntheticDataset as JaxSynthetic
 from ngp_pl_tpu.models import occupancy as jocc
+from ngp_pl_tpu.models import rendering as jrender
 from ngp_pl_tpu.models.ngp import NGP as JaxNGP
 from ngp_pl_tpu.models.rendering import render_rays_train_csr as jax_render
 from ngp_pl_tpu.models.rendering import scene_hits as jax_scene_hits
@@ -40,7 +42,6 @@ from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.datasets.synthetic import SyntheticDataset
 from ngp_pl_torch.models import occupancy as tocc
 from ngp_pl_torch.models.ngp import NGP
-from ngp_pl_torch.models.rendering import render_rays_train_csr
 from ngp_pl_torch.ops import ray_march as trm
 from ngp_pl_torch.ops.volume_render import composite_train
 from ngp_pl_torch.training import losses as tlosses
@@ -445,9 +446,20 @@ def _step_inputs(F=4):
     return jngp, params, occ, ro, rd, target, noise
 
 
+# (JAX render, its sample budget keyword, budget, chain) of each layout in
+# the one-step tests: the budget is the pool's multiple or S, the chain a
+# multiple of 32 (strided) and of 8 (rounds), N * S a multiple of 2048
+LAYOUT_STEP = {"csr": (jax_render, "pool_mult", 8, CHAIN),
+               "strided": (jrender.render_rays_train, "n_samples", 8, CHAIN),
+               "rounds": (jrender.render_rays_train_rounds, "n_samples", 8,
+                          256)}
+
+
 def _jax_loss_and_grads(monkeypatch, jngp, params, occ, ro, rd, target,
-                        noise):
-    """JAX's CSR train loss through its TPU field path (Pallas K1/K7 run
+                        noise, layout="csr", lam=0.0, budget=None,
+                        chain=None):
+    """JAX's train loss in `layout` (the rounds render takes the distortion
+    weight `lam` too) through its TPU field path (Pallas K1/K7 run
     interpreted), as `loss_fn` runs it on the chip."""
     monkeypatch.setattr(jngp_mod, "hash_encode_mlp",
                         lambda x, table, w1, spec, need_x_grad=False:
@@ -455,14 +467,19 @@ def _jax_loss_and_grads(monkeypatch, jngp, params, occ, ro, rd, target,
                                               x, table, w1))
     jngp.fused_tail = True
     win = jrm.occupancy_windows(jnp.asarray(occ))
+    render, key, b, c = LAYOUT_STEP[layout]
+    kw = {key: budget or b, "chain_length": chain or c}
+    if layout == "rounds":
+        kw["lambda_distortion"] = lam
 
     def loss_fn(p):
-        res = jax_render(jngp, p, jnp.asarray(occ), jnp.asarray(ro),
-                         jnp.asarray(rd), jnp.asarray(noise),
-                         jnp.ones((3,), jnp.float32), rcfg=JaxRenderConfig(),
-                         pool_mult=8, chain_length=CHAIN, win_rows=win)
+        res = render(jngp, p, jnp.asarray(occ), jnp.asarray(ro),
+                     jnp.asarray(rd), jnp.asarray(noise),
+                     jnp.ones((3,), jnp.float32), rcfg=JaxRenderConfig(),
+                     win_rows=win, **kw)
         loss = jlosses.total_loss(jlosses.nerf_loss(
-            res, jnp.asarray(target), lambda_opacity=1e-3))
+            res, jnp.asarray(target), lambda_opacity=1e-3,
+            lambda_distortion=lam))
         return loss, res
 
     with pltpu.force_tpu_interpret_mode():
@@ -480,18 +497,31 @@ def _leaves(tree):
 TCFG = dict(lr=1e-2, num_epochs=2, iters_per_epoch=4)
 
 
-@pytest.mark.parametrize("F", [4, 2])
-def test_one_train_step_matches_jax(monkeypatch, F):
+# distortion weight of each layout's step: the rounds render carries it
+# through its rounds
+STEP_LAM = {"csr": 0.0, "strided": 0.0, "rounds": 1e-2}
+
+
+@pytest.mark.parametrize("F,layout", [
+    pytest.param(4, "csr", id="4"), pytest.param(2, "csr", id="2"),
+    pytest.param(4, "strided", id="strided-4"),
+    pytest.param(4, "rounds", id="rounds-4")])
+def test_one_train_step_matches_jax(monkeypatch, F, layout):
     """From identical params, Adam state (count 5, so epoch 1 of the
     cosine), rays, noise and background, with the F=4 (K1, K2+K5) and the
-    F=2 (K3, K4) encode: the pool is identical; loss within 1e-5; every
+    F=2 (K3, K4) encode, in the CSR layout and at F=4 in the strided and
+    rounds layouts (rounds with the distortion loss): the pool is
+    identical (CSR; the strided block's ts and valid, and in both other
+    layouts the per-ray counts, the loss mask and, under rounds, the rays
+    alive after the last round); loss within 1e-5; every
     gradient within 2e-3 of its max (bf16 rounding flips where an f32 sum
     differs in its last bit; the hash table's gradient is a sum of bf16
     products into few rows); the updated params within 1e-3 * lr and the
     moments within 1e-3 of their max."""
     jngp, params, occ, ro, rd, target, noise = _step_inputs(F)
+    lam = STEP_LAM[layout]
     loss_j, res_j, grads_j = _jax_loss_and_grads(
-        monkeypatch, jngp, params, occ, ro, rd, target, noise)
+        monkeypatch, jngp, params, occ, ro, rd, target, noise, layout, lam)
 
     rng = np.random.default_rng(1)
     g_leaves = _leaves(grads_j)
@@ -512,21 +542,29 @@ def test_one_train_step_matches_jax(monkeypatch, F):
     params_new_j = optax.apply_updates(params, upd)
 
     # the port: gradients from its render + loss
-    tcfg = TrainConfig(**TCFG)
+    tcfg = TrainConfig(**TCFG, distortion_loss_w=lam)
     rcfg = RenderConfig()
     ngp = _port_model(params)
     win = trm.occupancy_windows(torch.from_numpy(occ))
     args = (torch.from_numpy(ro), torch.from_numpy(rd),
             torch.from_numpy(noise), torch.ones(3))
-    res_t = render_rays_train_csr(ngp, win, args[0], args[1], args[2],
-                                  args[3], rcfg=rcfg, pool_mult=8,
-                                  chain_length=CHAIN)
-    for f in ("ts", "ray_idx", "offsets", "rm_counts"):
+    _, _, budget, chain = LAYOUT_STEP[layout]
+    res_t, loss_of = tts.train_render(ngp, win, *args, tcfg=tcfg, rcfg=rcfg,
+                                      n_samples=budget, chain_length=chain,
+                                      layout=layout)
+    same = {"csr": ("ts", "ray_idx", "offsets", "rm_counts"),
+            "strided": ("ts", "valid", "rm_counts", "loss_mask"),
+            "rounds": ("rm_counts", "vr_counts", "loss_mask",
+                       "rounds_alive_end")}[layout]
+    for f in same:
         np.testing.assert_array_equal(res_t[f].numpy(), np.asarray(res_j[f]),
                                       err_msg=f)
-    assert int(res_t["rm_samples"]) == int(res_j["rm_samples"]) == 8 * N_RAYS
-    loss_t = tlosses.total_loss(tlosses.nerf_loss(
-        res_t, torch.from_numpy(target), lambda_opacity=1e-3))
+    if layout == "csr":
+        assert int(res_t["rm_samples"]) == int(res_j["rm_samples"]) \
+            == 8 * N_RAYS
+    else:                    # some rays are left out of the loss, not all
+        assert 0 < int(res_t["loss_mask"].sum()) < N_RAYS
+    loss_t = loss_of(torch.from_numpy(target))
     assert float(loss_t.detach()) == pytest.approx(loss_j, rel=1e-5)
     params_t = [w for _, _, w in ngp._slots()]
     grads_t = torch.autograd.grad(loss_t, params_t)
@@ -541,8 +579,8 @@ def test_one_train_step_matches_jax(monkeypatch, F):
                    tts.cosine_epoch_schedule(1e-2, 2, 4, 30.0), eps=1e-15)
     load_train_state(ngp, opt, params, mu_n, nu_n, 5)
     m = tts.train_step(ngp, opt, win, *args[:2], torch.from_numpy(target),
-                       *args[2:], tcfg=tcfg, rcfg=rcfg, pool_mult=8,
-                       chain_length=CHAIN)
+                       *args[2:], tcfg=tcfg, rcfg=rcfg, n_samples=budget,
+                       chain_length=chain, layout=layout)
     assert bool(m["grads_finite"]) and int(m["n_skipped"]) == 0
     assert float(m["loss"]) == pytest.approx(loss_j, rel=1e-5)
     p_t, mu_t, nu_t, count = train_state_numpy(ngp, opt)
@@ -583,7 +621,7 @@ def test_nonfinite_step_is_skipped():
                        torch.from_numpy(rd), torch.from_numpy(bad),
                        torch.from_numpy(noise), torch.ones(3),
                        tcfg=TrainConfig(**TCFG), rcfg=RenderConfig(),
-                       pool_mult=8, chain_length=CHAIN)
+                       n_samples=8, chain_length=CHAIN)
     assert not bool(m["grads_finite"]) and int(m["n_skipped"]) == 1
     assert opt.count == 4
     for p, b in zip(opt.params, before):
@@ -631,7 +669,7 @@ def test_demand_controller_matches_jax():
     """The CSR branch of `_consume_demand`, one interval late, sticky-down,
     warmup hold, NaN/inf sanitised: the same pool multiplier and chain
     length as JAX's NeRFSystem after every demand vector."""
-    js, ts = _jax_csr_system(), _port_system()
+    js, ts = _jax_csr_system(), _port_system(train_layout="csr")
     assert ts.chain_full == js.chain_full
     assert ts._chain_buckets == js._chain_buckets
     rng = np.random.default_rng(0)
@@ -653,10 +691,30 @@ def test_demand_controller_matches_jax():
     assert len({s for s in ts._pool_buckets}) > 1
 
 
-def test_system_refuses_other_layouts():
-    for layout in ("auto", "strided", "rounds"):
-        with pytest.raises(NotImplementedError, match="later|next"):
-            NeRFSystem(TrainConfig(train_layout=layout), device="cpu")
+@pytest.mark.parametrize("layout", ["auto", "strided", "rounds"])
+def test_system_accepts_the_other_layouts(layout):
+    """Each layout is accepted and starts where JAX's NeRFSystem starts
+    (system.py:203-207): "auto" in CSR, the others in their own, with the
+    same budget and the same chain for the first step."""
+    tcfg = dict(dataset_name="synthetic", batch_size=1024, num_epochs=2,
+                train_layout=layout)
+    js = JaxSystem(JaxTrainConfig(**tcfg, exp_name="demand_test",
+                                  no_save_test=True),
+                   train_dataset=JaxSynthetic(split="train", img_size=24,
+                                              n_train=2),
+                   test_dataset=JaxSynthetic(split="test", img_size=24,
+                                             n_test=1))
+    ts = _port_system(train_layout=layout)
+    assert ts.layout == js.layout == ("csr" if layout == "auto" else layout)
+    assert ts._pool_mult == js._pool_mult
+    assert ts._rounds_chain == js._rounds_chain
+    assert ts.step_chain() == (js._rounds_chain if layout == "rounds"
+                               else js.chain_length)
+
+
+def test_system_refuses_an_unknown_layout():
+    with pytest.raises(ValueError, match="train_layout"):
+        NeRFSystem(TrainConfig(train_layout="dense"), device="cpu")
 
 
 def test_system_refuses_random_bg():
@@ -672,7 +730,7 @@ def test_two_blocks_on_cpu(monkeypatch, F):
     refresh (warmup phase); finite loss whose mean falls from the first
     block to the second, no skipped step."""
     system = _port_system(batch_size=256, img_size=32, n_train=4,
-                          log_every=16, n_features=F)
+                          log_every=16, n_features=F, train_layout="csr")
     assert system.ngp.hash_table.shape[1] == 32 * F
     refreshes, losses = [], []
     refresh, step = system._refresh_grid, system._train_step
