@@ -58,6 +58,16 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            393,216-slot pool, ray by ray, zero rows on unused slots; K1 on
            that x with the fitted table, called with feats as the train
            step calls it; checked and timed as at random points
+  resume   the flagship fits 256 steps and saves a full checkpoint; a fresh
+           system that has run one step loads it: every tensor of the
+           state equal (params, Adam moments, grid fields, count, step),
+           one train step on one explicit batch of both within
+           TRAINED_KERNEL_TOL with an identical pool, then 256 more steps
+           of the loaded system, finite, none skipped
+  validate  that system's validate with image dumps of one test view: both
+           PNGs there, signature and IHDR size right, PSNR/SSIM
+  bench    ngp_pl_torch.benchmarking.bench in this process, 512 warm-up
+           steps and 192 timed ones: its JSON record
 All of the train phases (train_reference, train, train_reference again,
 trained_render, profile, kernels) again in the strided layout
 (`_strided`: 8192 rays x S slots, the invalid ones at their ray's origin;
@@ -819,14 +829,17 @@ STEP_POOL = {"csr": ("ts", "ray_idx"), "strided": ("ts", "valid"),
              "rounds": ("rm_counts", "loss_mask")}
 
 
-def _train_step_on(torch, system, model, dev, batch):
+def _train_step_on(torch, system, model, dev, batch, win_rows=None):
     """Loss, gradients, pool and sample count of one train step of `model`
-    on `dev` from the system's grid, layout, budget and chain."""
+    on `dev` from the system's grid (or `win_rows`), layout, budget and
+    chain."""
     from ngp_pl_torch.training.train_step import train_render
 
     rays_o, rays_d, target, noise = batch
+    if win_rows is None:
+        win_rows = system.grid_state.win_rows
     res, loss_of = train_render(
-        model, system.grid_state.win_rows.to(dev), rays_o.to(dev),
+        model, win_rows.to(dev), rays_o.to(dev),
         rays_d.to(dev), noise.to(dev), torch.ones(3, device=dev),
         tcfg=system.tcfg, rcfg=system.rcfg, n_samples=system._pool_mult,
         chain_length=system.step_chain(), layout=system.layout)
@@ -850,6 +863,22 @@ def _step_err(torch, names, got, ref):
                 grad_l2_err_max=max(l2.values()),
                 pool_identical=all(torch.equal(got["pool"][k], ref["pool"][k])
                                    for k in ref["pool"]))
+
+
+def explicit_batch(torch, system, seed, n_rays):
+    """(rays_o, rays_d, target, noise) on the host: n_rays pixels of the
+    system's train views and the march noise, drawn from `seed`."""
+    from ngp_pl_torch.datasets.ray_utils import get_rays
+
+    ds = system.train_dataset
+    g = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, len(ds.poses), (n_rays,), generator=g)
+    pix = torch.randint(0, ds.directions.shape[0], (n_rays,), generator=g)
+    rays_o, rays_d = get_rays(torch.from_numpy(ds.directions)[pix],
+                              torch.from_numpy(ds.poses)[img])
+    return (rays_o.contiguous(), rays_d.contiguous(),
+            system.rays[img.to(system.dev), pix.to(system.dev)].cpu(),
+            torch.rand((n_rays,), generator=g))
 
 
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
@@ -876,10 +905,8 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     after a fit, see ROUNDS_NOTE) is held by its pool against the CPU and
     by `card_tol` against the plain versions on the card; the record says
     so (`cpu_gate`)."""
-    from ngp_pl_torch.datasets.ray_utils import get_rays
     from ngp_pl_torch.models.ngp import NGP
 
-    ds = system.train_dataset
     cpu_ngp = NGP(system.cfg, device="cpu")
     cpu_ngp.load_params(system.ngp.params_numpy())
     names = [f"{n}" if i is None else f"{n}[{i}]"
@@ -891,14 +918,7 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
 
     batches, failed = [], False
     for seed in seeds:
-        g = torch.Generator().manual_seed(seed)
-        img = torch.randint(0, len(ds.poses), (n_rays,), generator=g)
-        pix = torch.randint(0, ds.directions.shape[0], (n_rays,), generator=g)
-        rays_o, rays_d = get_rays(torch.from_numpy(ds.directions)[pix],
-                                  torch.from_numpy(ds.poses)[img])
-        batch = (rays_o.contiguous(), rays_d.contiguous(),
-                 system.rays[img.to(system.dev), pix.to(system.dev)].cpu(),
-                 torch.rand((n_rays,), generator=g))
+        batch = explicit_batch(torch, system, seed, n_rays)
         ref = _train_step_on(torch, system, cpu_ngp, "cpu", batch)
         card = _train_step_on(torch, system, system.ngp, system.dev, batch)
         with plain_on_card("K7"):
@@ -1068,16 +1088,22 @@ def render_slice(torch, tcfg, views):
                  "so this is the march's worst case"}
 
 
-def ckpt_roundtrip(torch, res, tcfg):
-    """Slim checkpoint of `res`'s model and grid, reloaded through the eval
-    entry point: the re-render of view 0 must be identical."""
+def _build_tmp():
+    """A temporary directory under the build directory (gitignored)."""
     from ngp_pl_torch import _build
-    from ngp_pl_torch.eval import evaluate
-    from ngp_pl_torch.training.checkpoint import save_slim_checkpoint
 
     build_dir = _build.BUILD_DIR.parent
     build_dir.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+    return tempfile.TemporaryDirectory(dir=build_dir)
+
+
+def ckpt_roundtrip(torch, res, tcfg):
+    """Slim checkpoint of `res`'s model and grid, reloaded through the eval
+    entry point: the re-render of view 0 must be identical."""
+    from ngp_pl_torch.eval import evaluate
+    from ngp_pl_torch.training.checkpoint import save_slim_checkpoint
+
+    with _build_tmp() as tmp:
         path = os.path.join(tmp, "slim.npz")
         save_slim_checkpoint(path, params=res.ngp.params_numpy(),
                              occ_grid=res.occ_grid)
@@ -1147,6 +1173,143 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     del system, x, gr, w1
     torch.cuda.empty_cache()
     return train, at_step
+
+
+RESUME_STEPS = 256             # fitted before the save, and again after
+BENCH_WARM_STEPS = 512         # the bench's warm-up here (its default: 2048)
+BENCH_STEPS = 192
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _state_equal(torch, a, b):
+    """Per part of the full train state, whether two systems hold equal
+    tensors (params, Adam moments, each grid field) and counts."""
+    out = {"params": all(torch.equal(x, y) for x, y in zip(
+        a.optimizer.params, b.optimizer.params)),
+           "mu": all(torch.equal(x, y) for x, y in zip(a.optimizer.mu,
+                                                       b.optimizer.mu)),
+           "nu": all(torch.equal(x, y) for x, y in zip(a.optimizer.nu,
+                                                       b.optimizer.nu)),
+           "count": a.optimizer.count == b.optimizer.count,
+           "step": a._host_step == b._host_step}
+    for name in ("density_grid", "count_grid", "occ_grid", "mean_density",
+                 "win_rows"):
+        out[name] = bool(torch.equal(getattr(a.grid_state, name),
+                                     getattr(b.grid_state, name)))
+    return out
+
+
+def resume_path(torch):
+    """The flagship fits RESUME_STEPS steps and saves a full checkpoint; a
+    fresh system, which has run one step first (so that the encode's f16
+    table copy and the field tail's packed weights are cached), loads it.
+    Every tensor of the state must be equal; one train step on one
+    explicit batch, with the saved system's layout, budget and chain, must
+    agree between the two within TRAINED_KERNEL_TOL (K2+K5's reductions
+    are not order-deterministic) with an identical pool; the loaded system
+    then fits RESUME_STEPS more steps, finite, with no skipped step and
+    every kernel of the path launched.  Returns (the loaded system, its
+    record); the counts run from 0 at the start of the phase."""
+    from ngp_pl_torch.benchmarking.train_setup import train_config, train_system
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    saved = train_system(train_config())
+    saved.fit(max_steps=RESUME_STEPS, log_every=128, quiet=True)
+    loaded = train_system(train_config())
+    loaded.on_train_start()
+    loaded.step()
+    with _build_tmp() as tmp:
+        path = os.path.join(tmp, "full.npz")
+        saved.save(path)
+        size = os.path.getsize(path)
+        loaded.load(path)
+    equal = _state_equal(torch, saved, loaded)
+    if not all(equal.values()):
+        raise AssertionError(f"the loaded state differs: {equal}")
+    names = [n if i is None else f"{n}[{i}]"
+             for n, i, _ in saved.ngp._slots()]
+    batch = explicit_batch(torch, saved, 11, 2048)
+    step_err = _step_err(
+        torch, names,
+        _train_step_on(torch, saved, loaded.ngp, saved.dev, batch,
+                       win_rows=loaded.grid_state.win_rows),
+        _train_step_on(torch, saved, saved.ngp, saved.dev, batch))
+    if not (step_err["pool_identical"]
+            and step_err["loss_rel_err"] <= TRAINED_KERNEL_TOL[0]
+            and step_err["grad_rel_err_max"] <= TRAINED_KERNEL_TOL[1]):
+        raise AssertionError(f"the loaded system's step differs: {step_err}")
+    restart = dict(layout=loaded.layout, pool_mult=loaded._pool_mult,
+                   chain_length=loaded.chain_length)
+    hist = loaded.fit(max_steps=RESUME_STEPS, log_every=128, quiet=True)
+    _sync(torch, loaded.dev)
+    launches = {k: c.launches for k, c in counters.items()}
+    last = hist[-1]
+    if not (all(math.isfinite(h["loss"]) for h in hist)
+            and last["skipped_total"] == 0
+            and loaded._host_step == 2 * RESUME_STEPS
+            and all(launches[k] > 0 for k in path_kernels(loaded.cfg))):
+        raise AssertionError(f"the resumed fit failed: {hist}, {launches}")
+    del saved
+    torch.cuda.empty_cache()
+    return loaded, dict(
+        steps_saved=RESUME_STEPS, checkpoint_bytes=size, equal=equal,
+        step_vs_saved=step_err, tol=TRAINED_KERNEL_TOL,
+        controller_after_load=restart,
+        loss={h["step"]: h["loss"] for h in hist},
+        psnr={h["step"]: h["psnr"] for h in hist},
+        skipped=last["skipped_total"], steps=loaded._host_step,
+        seconds=time.perf_counter() - t0, launches=launches)
+
+
+def validate_dumps(torch, system):
+    """`validate(save_images=True, max_images=1)` in a temporary working
+    directory: both PNGs of view 0 exist, start with the PNG signature and
+    carry the view's width and height in IHDR."""
+    import struct
+
+    w, h = system.test_dataset.img_wh
+    t0 = time.perf_counter()
+    with _build_tmp() as tmp, contextlib.chdir(tmp):
+        scores = system.validate(save_images=True, max_images=1)
+        seconds = time.perf_counter() - t0
+        val_dir = os.path.join("results", system.tcfg.dataset_name,
+                               system.tcfg.exp_name)
+        files = sorted(os.listdir(val_dir))
+        heads = {}
+        for name in ("000.png", "000_d.png"):
+            with open(os.path.join(val_dir, name), "rb") as f:
+                heads[name] = f.read(24)
+    for name, head in heads.items():
+        if not (head[:8] == PNG_SIGNATURE and head[12:16] == b"IHDR"
+                and struct.unpack(">II", head[16:24]) == (w, h)):
+            raise AssertionError(f"{name} is not a {w}x{h} PNG: {head!r}")
+    if files != ["000.png", "000_d.png"] or not all(
+            math.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"validate: {files}, {scores}")
+    return dict(width=w, height=h, files=files, seconds=seconds, **scores)
+
+
+def bench_path(torch):
+    """`ngp_pl_torch.benchmarking.bench` in this process with a shorter
+    warm-up; the counts run from 0 just before."""
+    from ngp_pl_torch.benchmarking import bench
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    rec = bench.run(bench.bench_system("cuda", 8192, 0.5), BENCH_WARM_STEPS,
+                    BENCH_STEPS)
+    launches = {k: c.launches for k, c in counters.items()}
+    if not (rec["value"] > 0 and all(
+            launches[k] > 0 for k in ("K1", "K2+K5", "K7", "K8"))):
+        raise AssertionError(f"bench: {rec}, {launches}")
+    torch.cuda.empty_cache()
+    return dict(rec, warm_steps=BENCH_WARM_STEPS, steps=BENCH_STEPS,
+                seconds=time.perf_counter() - t0, launches=launches)
 
 
 def main() -> int:
@@ -1225,6 +1388,19 @@ def main() -> int:
     for key, rec in at_step.items():
         checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
+
+    # full checkpoints, resumed; the trained system's validation dumps; the
+    # bench entry point: each counted from 0 at its start
+    system, resume = resume_path(torch)
+    launches["resume"] = resume["launches"]
+    log({"phase": "resume", "card": card, **resume})
+    log({"phase": "validate", "card": card,
+         **validate_dumps(torch, system)})
+    del system
+    torch.cuda.empty_cache()
+    bench = bench_path(torch)
+    launches["bench"] = bench["launches"]
+    log({"phase": "bench", "card": card, **bench})
 
     # the flagship in the strided layout and in rounds with the distortion
     # loss, counted the same way

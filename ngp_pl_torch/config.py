@@ -108,8 +108,13 @@ class TrainConfig:
     grid_warmup_steps: int = 256
     train_layout: str = "auto"                 # auto|strided|csr|rounds
     log_every: int = 100
+    # validation (opt.py:54-60)
+    eval_lpips: bool = False    # no LPIPS weights in the port: raises
+    val_only: bool = False
+    no_save_test: bool = False
     exp_name: str = "exp"
-    weight_path: Optional[str] = None
+    ckpt_path: Optional[str] = None            # full checkpoint to resume
+    weight_path: Optional[str] = None          # slim checkpoint
     seed: int = 1337
 
     @property
@@ -166,7 +171,11 @@ def add_train_args(parser) -> None:
     parser.add_argument("--distortion_loss_w", type=float,
                         default=d.distortion_loss_w)
     parser.add_argument("--random_bg", action="store_true")
+    parser.add_argument("--eval_lpips", action="store_true")
+    parser.add_argument("--val_only", action="store_true")
+    parser.add_argument("--no_save_test", action="store_true")
     parser.add_argument("--exp_name", type=str, default=d.exp_name)
+    parser.add_argument("--ckpt_path", type=str, default=None)
     parser.add_argument("--train_layout", type=str, default=d.train_layout,
                         choices=["auto", "rounds", "csr", "strided"])
 

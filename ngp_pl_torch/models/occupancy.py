@@ -5,7 +5,8 @@ The grid is plain row-major (x, y, z) with one uint8 per cell, read
 directly by the test-time marcher; the train march reads the packed 8^3
 windows (`win_rows`), rebuilt with every refresh.  The TPU's bit lines and
 dilated lines fed marches the port does not have (the z-line and segment
-marches) and are not kept.
+marches), so the state does not keep them; `grid_rows` builds them for a
+full checkpoint, which the JAX package loads.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from ngp_pl_torch.config import NEAR_DISTANCE, NGPConfig
 from ngp_pl_torch.ops.ray_march import (
     WIN_B,
     WIN_WORDS,
+    dilate_lines,
     f32_const,
+    occupancy_lines,
     occupancy_windows,
 )
 
@@ -34,6 +37,15 @@ class OccupancyGridState:
     occ_grid: torch.Tensor       # (C, G, G, G) uint8, the marcher's input
     mean_density: torch.Tensor   # () f32
     win_rows: Optional[torch.Tensor] = None   # (C*(G/4)^3, 16) int32
+
+
+def grid_rows(occ_grid: torch.Tensor):
+    """(occ_rows, dil_rows, win_rows): the bit-packed z-lines, their 3^3
+    dilation and the 8^3 windows of the (C, G, G, G) grid, int32 words
+    (ngp_pl_tpu/models/occupancy.py:52-59)."""
+    C, G = occ_grid.shape[0], occ_grid.shape[1]
+    rows = occupancy_lines(occ_grid)
+    return rows, dilate_lines(rows, C, G), occupancy_windows(occ_grid)
 
 
 def init_grid_state(cfg: NGPConfig, device) -> OccupancyGridState:

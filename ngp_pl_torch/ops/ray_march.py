@@ -275,7 +275,52 @@ def occupancy_windows(occ_grid: torch.Tensor) -> torch.Tensor:
     shift = torch.arange(16, dtype=torch.int32, device=occ_grid.device)
     halves = (bits << shift).sum(dim=-1, dtype=torch.int64)   # 16-bit halves
     words = halves[..., 0] + (halves[..., 1] << 16)
+    return _as_int32(words)
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2^32) -> the int32 with the same 32 bits."""
     return (words - ((words >> 31) << 32)).to(torch.int32)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def occupancy_lines(occ_grid: torch.Tensor) -> torch.Tensor:
+    """(C, G, G, G) uint8 -> (C*G*G, ceil(G/32)) int32 bit-packed z-lines:
+    bit z % 32 of word z // 32 of row (c*G + x)*G + y is cell (x, y, z) of
+    cascade c (ngp_pl_tpu/ops/ray_march.py:141-156).  The words are the
+    JAX package's uint32 rows read as int32.  No march of the port reads
+    them; full checkpoints carry them for the JAX package."""
+    C, G = occ_grid.shape[0], occ_grid.shape[1]
+    W = max(1, (G + 31) // 32)
+    flat = occ_grid.reshape(C * G * G, G)
+    if W * 32 != G:
+        flat = F.pad(flat, (0, W * 32 - G))
+    bits = (flat.reshape(C * G * G, W, 32) > 0).to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=occ_grid.device)
+    return _as_int32((bits << shift).sum(dim=-1))
+
+
+def dilate_lines(occ_rows: torch.Tensor, cascades: int,
+                 grid_size: int) -> torch.Tensor:
+    """3x3x3 binary dilation of the bit-packed z-lines, per cascade
+    (ngp_pl_tpu/ops/ray_march.py:372-400): z by shifts with carries across
+    words, then y and x by neighbouring rows.  int32 words in and out; the
+    shifts run on their unsigned values in int64."""
+    G = grid_size
+    a = occ_rows.to(torch.int64) & _U32
+    W = a.shape[-1]
+    zero = torch.zeros_like(a[:, :1])
+    hi = torch.cat([zero, a[:, :-1] >> 31], dim=1)
+    lo = torch.cat([(a[:, 1:] << 31) & _U32, zero], dim=1)
+    a = a | ((a << 1) & _U32) | hi | (a >> 1) | lo
+    for shape in ((cascades * G, G, W), (cascades, G, G, W)):
+        a = a.reshape(shape)
+        zero = torch.zeros_like(a[:, :1])
+        a = (a | torch.cat([zero, a[:, :-1]], dim=1)
+             | torch.cat([a[:, 1:], zero], dim=1))
+    return _as_int32(a.reshape(cascades * G * G, W))
 
 
 def segment_march_dmax_ok(directions, grid_size: int = 128,

@@ -10,7 +10,12 @@ length follow the observed demand, read one interval late
 (`_consume_demand`).  "auto", the default, trains in CSR through grid
 warmup and then in the strided layout wherever a bucket covers the q99
 per-ray demand at no more than 1.37x the mean's, else in CSR; "csr",
-"strided" and "rounds" pin one layout.
+"strided" and "rounds" pin one layout.  `freeze_buckets` pins layout,
+budget and chain (benchmarks set it before their timed blocks).
+
+Validation scores the test views and writes them as PNGs with their
+turbo-coloured depth; `save` and `load` write and read full checkpoints
+(params, Adam state, grid state and step) in the JAX package's keys.
 
 Every march is the windowed single-cascade one; scenes that need the
 multi-cascade march and random backgrounds raise NotImplementedError.
@@ -18,6 +23,7 @@ multi-cascade march and random backgrounds raise NotImplementedError.
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Dict, Optional
 
@@ -40,8 +46,14 @@ from ngp_pl_torch.models.rendering import (
 )
 from ngp_pl_torch.ops.ray_march import occupancy_windows, segment_march_dmax_ok
 from ngp_pl_torch.training.checkpoint import (
+    grid_state_from_numpy,
+    grid_state_numpy,
+    load_checkpoint,
     load_slim_checkpoint,
+    load_train_state,
+    save_checkpoint,
     save_slim_checkpoint,
+    train_state_numpy,
 )
 from ngp_pl_torch.training.metrics import psnr as psnr_fn
 from ngp_pl_torch.training.metrics import ssim as ssim_fn
@@ -52,6 +64,7 @@ from ngp_pl_torch.training.train_step import (
     sample_batch,
     train_step,
 )
+from ngp_pl_torch.utils.images import depth2img, write_png
 
 LAYOUTS = ("auto", "csr", "strided", "rounds")
 
@@ -140,6 +153,8 @@ class NeRFSystem:
         # rounds, so a round needs only its local skip and S samples
         self._rounds_chain = min(384, max(128, -(-self.chain_full // 8) * 8))
         self._pending_demand = None
+        # True pins layout, budget and chain at their current values
+        self.freeze_buckets = False
 
     # -- setup ------------------------------------------------------------
     def on_train_start(self):
@@ -215,7 +230,10 @@ class NeRFSystem:
         """Re-bucket layout, budget and chain from the demand vector of the
         previous interval (system.py:323-443): the vector is copied to the
         host asynchronously and read one interval late, so the host never
-        waits for the block it just queued."""
+        waits for the block it just queued.  Nothing moves while
+        `freeze_buckets` is set."""
+        if self.freeze_buckets:
+            return
         dv = torch.as_tensor(metrics["demand_vec"])
         if dv.is_cuda:
             host = torch.empty(dv.shape, dtype=dv.dtype, pin_memory=True)
@@ -357,15 +375,32 @@ class NeRFSystem:
 
     # -- validation -------------------------------------------------------
     @torch.no_grad()
-    def validate(self, max_images: Optional[int] = None) -> Dict[str, float]:
+    def validate(self, save_images: Optional[bool] = None,
+                 max_images: Optional[int] = None) -> Dict[str, float]:
         """PSNR/SSIM of the test views through the round renderer
-        (system.py:548-630, without image dumps)."""
+        (system.py:548-630).  With `save_images` (by default unless
+        `no_save_test`) each view is written to
+        results/<dataset_name>/<exp_name>/ as NNN.png and its
+        turbo-coloured depth as NNN_d.png.  LPIPS needs VGG weights, which
+        the port does not have: `eval_lpips` raises before any render."""
+        if self.tcfg.eval_lpips:
+            raise RuntimeError(
+                "--eval_lpips: the port has no LPIPS-vgg weights and no "
+                "LPIPS network, so it cannot score LPIPS; run without "
+                "--eval_lpips to score PSNR and SSIM only")
+        if save_images is None:
+            save_images = not self.tcfg.no_save_test
+        val_dir = os.path.join("results", self.tcfg.dataset_name,
+                               self.tcfg.exp_name)
+        if save_images:
+            os.makedirs(val_dir, exist_ok=True)
         ds = self.test_dataset
         w, h = ds.img_wh
         renderer = RoundRenderer(self.ngp, self.rcfg)
         dirs = torch.from_numpy(ds.directions).to(self.dev)
-        n = len(ds.poses) if max_images is None else min(max_images,
-                                                         len(ds.poses))
+        n = len(ds.poses)
+        if max_images:
+            n = min(n, max_images)
         psnrs, ssims = [], []
         for idx in range(n):
             item = ds.test_item(idx)
@@ -376,9 +411,39 @@ class NeRFSystem:
             gt = item["rgb"].reshape(h, w, 3)
             psnrs.append(float(psnr_fn(pred, gt)))
             ssims.append(float(ssim_fn(pred, gt)))
+            if save_images:
+                rgb = pred.cpu().numpy()
+                write_png(os.path.join(val_dir, f"{idx:03d}.png"),
+                          (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+                write_png(os.path.join(val_dir, f"{idx:03d}_d.png"),
+                          depth2img(out["depth"].reshape(h, w).cpu().numpy()))
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
     # -- checkpointing ----------------------------------------------------
+    def _state_numpy(self) -> Dict:
+        params, mu, nu, count = train_state_numpy(self.ngp, self.optimizer)
+        return dict(params=params, mu=mu, nu=nu, count=count,
+                    grid=grid_state_numpy(self.grid_state))
+
+    def save(self, path: str):
+        """Full checkpoint: params, Adam state, grid state and step
+        (system.py:633-638)."""
+        save_checkpoint(path, **self._state_numpy(), step=self._host_step)
+
     def save_slim(self, path: str):
         save_slim_checkpoint(path, params=self.ngp.params_numpy(),
                              occ_grid=self.grid_state.occ_grid)
+
+    def load(self, path: str):
+        """Resume from a full checkpoint of either package
+        (system.py:644-652): parameters and Adam moments are copied into
+        the existing tensors (which bumps the version counters that key
+        the encode's table copy and the field tail's packed weights), the
+        grid state and the step replaced.  As in the JAX package, the
+        demand controller is left as it is (a fresh system's layout,
+        budget and chain start from their initial values)."""
+        params, mu, nu, count, grid, step = load_checkpoint(
+            path, **self._state_numpy())
+        load_train_state(self.ngp, self.optimizer, params, mu, nu, count)
+        self.grid_state = grid_state_from_numpy(grid, self.dev)
+        self._host_step = step
