@@ -48,7 +48,12 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            last 8 blocks, pool and chain; K1, K7, K2+K5 and K8 must all
            launch; then train_reference again from the trained state on
            4 batches, each beside two witnesses against the CPU: the card's
-           step with K7, and with every kernel, run as its plain version
+           step with K7, and with every kernel, run as its plain version;
+           K1 alone is held to the larger of the limit and its own witness
+           (the plain step with every bf16 rounding of h1 flipped that
+           K1's error could flip), and a step past the limit passes only
+           with K1 alone so held and the other kernels within the limit
+           against K1 alone
   trained_render  test view 0 at 800x800 of the trained field: FPS,
            samples/ray, rounds, PSNR
   profile  one more 16-step block under torch.profiler: K1, K7, K2+K5, K8,
@@ -78,6 +83,19 @@ step held to the CSR path's limits; each fit also logs every 16-step
 block: layout, S, chain, the share of the batch left out of the loss,
 samples per ray marched and composited, rays alive after the last round
 and the rounds' slots.
+Then the multi-cascade scene of ngp_pl_torch.benchmarking.bench_mc (scale
+4: four cascades, steps growing by 1/256, hash levels up to 8192; L8F4 at
+full width, 8 views of the scene scaled by 8 at 96x96 on black, `auto`):
+K1 and K2+K5 at random points of its grid (`kernels`, geometry scale4),
+train_reference_mc (seeded), train_mc (512 steps; K1, K2+K5, K7 and K8
+must launch; each block with its layout, S, chain, rm per ray, occupied
+share per cascade, loss and rays/s from two CUDA events),
+train_reference_mc from the trained state on 4 batches
+(TRAINED_CPU_TOL_MC, TRAINED_KERNEL_TOL_MC, and the PR 9 witness rule
+against the CPU), trained_render_mc (an 800x800 frame of the trained
+field: FPS, samples/ray, rounds; the test views' PSNR/SSIM), a profiled
+block, then K1 and K2+K5 on a train step's input and K7 and K8 on the
+next step's (`kernels`, input train_step_mc).
 Then the same for the reference's own geometry, L16F2 (L=16, F=2, T=2^19,
 the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
 and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
@@ -180,6 +198,19 @@ SEEDED_MASKED_CPU_TOL = TRAINED_CPU_TOL
 # the loss is ~1e-10, made of rays through empty space; there the card's
 # step with no hand kernel misses the CPU's by ~50% of the loss (H100), and
 # `train_reference` holds that state by `cpu_floor_by_witness`.
+# The scale-4 scene after its 512-step fit (chip_smoke's train_mc) is
+# fitted harder than the flagship's (loss ~1e-5, ~5 samples per ray on
+# black), and there the step's readings are at a rounding floor: over 4
+# batches the card's step with no hand kernel misses the CPU's by up to
+# 8.6e-4 of the loss and 1.85e-2 of the largest gradient, and the
+# kernels' step misses the plain versions on the card by 3.8e-4 / 1.1e-2,
+# K1 alone by 4.3e-4 / 1.06e-2 (its other f32 summation order flips bf16
+# roundings of h1; 5.6e-7 of max at random points), K7 alone by 3.9e-4 /
+# 4.9e-3 (the H100, calls 2-3 of PR 11, PERF.md).  Both limits are ~2x
+# the no-kernel witness: the kernels may move the step twice as far as
+# the card's own summation order does without them.
+TRAINED_CPU_TOL_MC = (2e-3, 4e-2)
+TRAINED_KERNEL_TOL_MC = (2e-3, 4e-2)
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
 TRAINED_BATCHES_L16F2 = (7, 8)
 TRAINED_BATCHES_LAYOUTS = (7,)     # the strided and rounds paths
@@ -215,7 +246,10 @@ def _fwd_record(torch, key, x, table, w1, spec, with_feats):
     on the same inputs, h1 and feats each within K1_TOL of their max; the
     wrapper's event time and the kernel's device time, called with feats
     (as `HashEncodeMLP.forward` calls it) when `with_feats`, the plain
-    version's time and the bound (`roofline.k1_work` on this x)."""
+    version's time and the bound (`roofline.k1_work` on this x).  Every
+    timed call finds the L2 flushed (`timing`), as does every record's
+    here: inputs small enough to stay in the L2 would otherwise beat the
+    memory's rate that the bound assumes."""
     from ngp_pl_torch.benchmarking.roofline import bound, k1_work
     from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
     from ngp_pl_torch.ops import hash_encoding as he
@@ -237,10 +271,10 @@ def _fwd_record(torch, key, x, table, w1, spec, with_feats):
     del h_k, h_p, feats_p
     out = feats_k if with_feats else None
     call = lambda: wrapper(x, table, w1, spec, out)
-    ms = time_ms(call)
-    dev_ms = device_ms(call, (KERNEL_NAMES[key],))
+    ms = time_ms(call, flush=True)
+    dev_ms = device_ms(call, (KERNEL_NAMES[key],), flush=True)
     plain_ms = time_ms(lambda: he.hash_encode_fwd_plain(x, table, w1, spec,
-                                                        out))
+                                                        out), flush=True)
     # bytes: x in, h1 (and feats) out, w1 and the table points read
     nbytes, contraction, interp, points = k1_work(x, spec, table, w1,
                                                   feats=with_feats)
@@ -264,41 +298,49 @@ def check_k7(torch, ngp):
     and float64 sums), times (the wrapper's CUDA-event time, and the
     kernel's device time alone) and bound at both."""
     from ngp_pl_torch.benchmarking.field_tail_gates import (K7_INPUTS,
-                                                            k7_error,
                                                             tail_inputs)
-    from ngp_pl_torch.benchmarking.roofline import bound
-    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
-    from ngp_pl_torch.ops import field_tail as ft
 
     ws = [ngp.sigma_mlp[1].detach()] + [w.detach() for w in ngp.rgb_mlp]
     out = {}
     for P in (K7_N, POOL_N):
         h1, sh = (t.cuda() for t in tail_inputs(P, *K7_INPUTS))
-        got = ft.field_tail_cuda(h1, sh, *ws)
-        torch.cuda.synchronize()
-        err = k7_error(got, ft.field_tail_plain(h1, sh, *ws))
-        err64 = k7_error(got, ft.field_tail_plain(h1, sh, *ws,
-                                                  acc=torch.float64))
-        if not (err <= K7_TOL and err64 <= K7_TOL):
-            raise AssertionError(f"K7 disagrees at P={P}: {err} against "
-                                 f"the f32 plain version, {err64} against "
-                                 f"float64 sums")
-        del got
-        ms = time_ms(lambda: ft.field_tail_cuda(h1, sh, *ws))
-        dev_ms = device_ms(lambda: ft.field_tail_cuda(h1, sh, *ws),
-                           (KERNEL_NAMES["K7"],))
-        plain_ms = time_ms(lambda: ft.field_tail_plain(h1, sh, *ws))
-        nbytes = P * (64 * 4 + 16 * 4 + 4 + 12) + sum(w.numel() for w in ws) * 4
-        flops = 2.0 * P * sum(w.shape[0] * w.shape[1] for w in ws)
-        bound_ms, bound_by = bound(nbytes, flops, 0.0)
-        out[P] = dict(max_abs_err=err, tol_abs=K7_TOL,
-                      max_abs_err_vs_float64_sums=err64, ms=ms,
-                      device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
-                      bytes=nbytes, flops=flops)
+        out[P] = _k7_record(torch, (h1, sh, *ws))
         del h1, sh
         torch.cuda.empty_cache()
     return dict(out[K7_N], at_train_pool=out[POOL_N])
+
+
+def _k7_record(torch, args):
+    """K7 on (h1, sh, w2, wr1, wr2, wr3) against both plain versions
+    (K7_TOL), its event and device times, the plain version's time and
+    the bound; timed with the L2 flushed before each call."""
+    from ngp_pl_torch.benchmarking.field_tail_gates import k7_error
+    from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
+    from ngp_pl_torch.ops import field_tail as ft
+
+    P, ws = args[0].shape[0], args[2:]
+    got = ft.field_tail_cuda(*args)
+    torch.cuda.synchronize()
+    err = k7_error(got, ft.field_tail_plain(*args))
+    err64 = k7_error(got, ft.field_tail_plain(*args, acc=torch.float64))
+    if not (err <= K7_TOL and err64 <= K7_TOL):
+        raise AssertionError(f"K7 disagrees at P={P}: {err} against "
+                             f"the f32 plain version, {err64} against "
+                             f"float64 sums")
+    del got
+    ms = time_ms(lambda: ft.field_tail_cuda(*args), flush=True)
+    dev_ms = device_ms(lambda: ft.field_tail_cuda(*args),
+                       (KERNEL_NAMES["K7"],), flush=True)
+    plain_ms = time_ms(lambda: ft.field_tail_plain(*args), flush=True)
+    nbytes = P * (64 * 4 + 16 * 4 + 4 + 12) + sum(w.numel() for w in ws) * 4
+    flops = 2.0 * P * sum(w.shape[0] * w.shape[1] for w in ws)
+    bound_ms, bound_by = bound(nbytes, flops, 0.0)
+    return dict(max_abs_err=err, tol_abs=K7_TOL,
+                max_abs_err_vs_float64_sums=err64, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
+                bytes=nbytes, flops=flops)
 
 
 def check_bwd(torch, ngp, key):
@@ -318,7 +360,8 @@ def _bwd_record(torch, key, x, gr, w1, spec):
     the device time of the whole call and, from the same profile, of the
     kernel and of the gradient's zero fill apart, the plain version's time
     and the bound, whose share is of the whole call: the bound counts the
-    gradient written once, which is the fill's write."""
+    gradient written once, which is the fill's write.  Every timed call
+    finds the L2 flushed."""
     from ngp_pl_torch.benchmarking.roofline import bound
     from ngp_pl_torch.benchmarking.timing import device_split_ms, time_ms
     from ngp_pl_torch.ops import hash_encoding as he
@@ -334,9 +377,11 @@ def _bwd_record(torch, key, x, gr, w1, spec):
         raise AssertionError(f"{key} disagrees: {err} (scale {scale})")
     del d_k, d_p
     call = lambda: wrapper(x, gr, w1, spec)
-    ms = time_ms(call)
-    dev_ms, call_dev_ms = device_split_ms(call, (KERNEL_NAMES[key],))
-    plain_ms = time_ms(lambda: he.hash_encode_bwd_plain(x, gr, w1, spec))
+    ms = time_ms(call, flush=True)
+    dev_ms, call_dev_ms = device_split_ms(call, (KERNEL_NAMES[key],),
+                                          flush=True)
+    plain_ms = time_ms(lambda: he.hash_encode_bwd_plain(x, gr, w1, spec),
+                       flush=True)
     # bytes: x and g in, w1, the f32 table gradient out (every row)
     nbytes = (N * 12 + N * 64 * 4 + w1.numel() * 4
               + spec.total_rows * spec.row_width * 4)
@@ -361,57 +406,67 @@ def check_k8(torch, ngp):
     sums), times and bound at both."""
     from ngp_pl_torch.benchmarking.field_tail_gates import (K8_INPUTS,
                                                             tail_inputs)
-    from ngp_pl_torch.benchmarking.roofline import bound
-    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
-    from ngp_pl_torch.ops import field_tail as ft
 
     ws = [ngp.sigma_mlp[1].detach()] + [w.detach() for w in ngp.rgb_mlp]
-    names = ("dh1", "dW2", "dWr1", "dWr2", "dWr3")
     out = {}
     for P in (K8_N, POOL_N):
         args = (*(t.cuda() for t in tail_inputs(P, *K8_INPUTS, grads=True)),
                 *ws)
-        got = ft.field_tail_bwd_cuda(*args)
-        torch.cuda.synchronize()
-
-        def errs(ref):
-            return ({n: float((a - b).abs().max())
-                     for n, a, b in zip(names, got, ref)},
-                    {n: float((a - b).abs().max() / b.abs().max())
-                     for n, a, b in zip(names, got, ref)})
-
-        abs_err, rel_err = errs(ft.field_tail_bwd_plain(*args))
-        _, rel64 = errs(ft.field_tail_bwd_plain(*args, acc=torch.float64))
-        if not (max(rel_err.values()) <= K8_F32_TOL
-                and max(rel64.values()) <= K8_TOL):
-            raise AssertionError(f"K8 disagrees at P={P}: {rel_err} against "
-                                 f"the f32 plain version, {rel64} against "
-                                 f"float64 sums")
-        del got
-        ms = time_ms(lambda: ft.field_tail_bwd_cuda(*args))
-        dev_ms = device_ms(lambda: ft.field_tail_bwd_cuda(*args),
-                           (KERNEL_NAMES["K8"], "field_tail_bwd_reduce"))
-        plain_ms = time_ms(lambda: ft.field_tail_bwd_plain(*args))
-        nbytes = (P * (64 + 16 + 1 + 3 + 64) * 4
-                  + 2 * sum(w.numel() for w in ws) * 4)
-        # multiply-adds per sample: the forward (7,360), the backward
-        # through the layers (192 + 4,096 + 1,024 + 1,024) and the weight
-        # gradients (7,360), all bf16 operands
-        macs = 2 * sum(w.shape[0] * w.shape[1] for w in ws) + 192 + 4096 + 2048
-        flops = 2.0 * P * macs
-        bound_ms, bound_by = bound(nbytes, flops, 0.0)
-        out[P] = dict(max_abs_err=max(abs_err.values()), abs_err=abs_err,
-                      max_rel_err=max(rel_err.values()), rel_err=rel_err,
-                      tol_rel=K8_F32_TOL,
-                      max_rel_err_vs_float64_sums=max(rel64.values()),
-                      rel_err_vs_float64_sums=rel64,
-                      tol_rel_vs_float64_sums=K8_TOL, ms=ms,
-                      device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
-                      bytes=nbytes, flops=flops)
+        out[P] = _k8_record(torch, args)
         del args
         torch.cuda.empty_cache()
     return dict(out[K8_N], at_train_pool=out[POOL_N])
+
+
+def _k8_record(torch, args):
+    """K8 on (h1, sh, g_sigma, g_rgb, w2, wr1, wr2, wr3) against both plain
+    versions (K8_F32_TOL, K8_TOL), times and bound; timed with the L2
+    flushed before each call."""
+    from ngp_pl_torch.benchmarking.roofline import bound
+    from ngp_pl_torch.benchmarking.timing import device_ms, time_ms
+    from ngp_pl_torch.ops import field_tail as ft
+
+    P, ws = args[0].shape[0], args[4:]
+    names = ("dh1", "dW2", "dWr1", "dWr2", "dWr3")
+    got = ft.field_tail_bwd_cuda(*args)
+    torch.cuda.synchronize()
+
+    def errs(ref):
+        return ({n: float((a - b).abs().max())
+                 for n, a, b in zip(names, got, ref)},
+                {n: float((a - b).abs().max() / b.abs().max())
+                 for n, a, b in zip(names, got, ref)})
+
+    abs_err, rel_err = errs(ft.field_tail_bwd_plain(*args))
+    _, rel64 = errs(ft.field_tail_bwd_plain(*args, acc=torch.float64))
+    if not (max(rel_err.values()) <= K8_F32_TOL
+            and max(rel64.values()) <= K8_TOL):
+        raise AssertionError(f"K8 disagrees at P={P}: {rel_err} against "
+                             f"the f32 plain version, {rel64} against "
+                             f"float64 sums")
+    del got
+    ms = time_ms(lambda: ft.field_tail_bwd_cuda(*args), flush=True)
+    dev_ms = device_ms(lambda: ft.field_tail_bwd_cuda(*args),
+                       (KERNEL_NAMES["K8"], "field_tail_bwd_reduce"),
+                       flush=True)
+    plain_ms = time_ms(lambda: ft.field_tail_bwd_plain(*args), flush=True)
+    nbytes = (P * (64 + 16 + 1 + 3 + 64) * 4
+              + 2 * sum(w.numel() for w in ws) * 4)
+    # multiply-adds per sample: the forward (7,360), the backward through
+    # the layers (192 + 4,096 + 1,024 + 1,024) and the weight gradients
+    # (7,360), all bf16 operands
+    macs = 2 * sum(w.shape[0] * w.shape[1] for w in ws) + 192 + 4096 + 2048
+    flops = 2.0 * P * macs
+    bound_ms, bound_by = bound(nbytes, flops, 0.0)
+    return dict(max_abs_err=max(abs_err.values()), abs_err=abs_err,
+                max_rel_err=max(rel_err.values()), rel_err=rel_err,
+                tol_rel=K8_F32_TOL,
+                max_rel_err_vs_float64_sums=max(rel64.values()),
+                rel_err_vs_float64_sums=rel64,
+                tol_rel_vs_float64_sums=K8_TOL, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / dev_ms, n=P,
+                bytes=nbytes, flops=flops)
 
 
 def check_k6(torch):
@@ -701,13 +756,19 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
     blocks, step_block = [], system.step_block
 
     def recorded_block():
-        """The block, and its layout, budget and chain, kept on the
-        device: reading them here would fence every block."""
+        """The block, its layout, budget and chain, the grid's occupied
+        share per cascade after its refresh and two CUDA events around it,
+        kept on the device: reading them here would fence every block."""
         layout, S, chain = system.layout, system._pool_mult, \
             system.step_chain()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         m = step_block()
+        ev[1].record()
+        occ = system.grid_state.occ_grid
         blocks.append((system._host_step, layout, S, chain,
-                       {k: m[k] for k in BLOCK_KEYS}))
+                       {k: m[k] for k in BLOCK_KEYS},
+                       occ.reshape(occ.shape[0], -1).float().mean(1), ev))
         return m
 
     system.step_block = recorded_block
@@ -755,14 +816,20 @@ BLOCK_KEYS = ("loss", "psnr", "dropped_share", "rm_samples", "vr_samples",
               "rounds_alive_end", "total_slots")
 
 
-def _block_record(batch, step, layout, S, chain, m):
+def _block_record(batch, step, layout, S, chain, m, occupied, ev):
     """One block of a fit: the layout, budget (the CSR pool's multiple or
     S) and chain it ran with; loss and PSNR; the share of the batch left
     out of the loss; samples per ray marched (rm, the block's largest) and
     composited (vr); rays alive after the last round and the slots of a
-    rounds step."""
+    rounds step; the grid's occupied share per cascade; the stream's time
+    from the block's first launch to its last kernel's end (CUDA events,
+    no fence) and the rays/s it makes."""
     v = {k: float(t) for k, t in m.items()}
-    return dict(step=step, layout=layout, S=S, chain=chain, loss=v["loss"],
+    ms = ev[0].elapsed_time(ev[1])
+    return dict(step=step, layout=layout, S=S, chain=chain,
+                occupied_by_cascade=[float(o) for o in occupied],
+                stream_ms=ms, rays_per_s=batch * 16 / ms * 1e3,
+                loss=v["loss"],
                 psnr=v["psnr"], dropped_share=v["dropped_share"],
                 rm_per_ray=v["rm_samples"] / batch,
                 vr_per_ray=v["vr_samples"] / batch,
@@ -823,26 +890,60 @@ def plain_on_card(*keys):
             setattr(mod, attr, fn)
 
 
+# The encode kernels miss their plain versions by up to 8.7e-7 of max |h1|
+# on a train step's input (K1 at scale 4, call 4 of PR 11; K1 and K3 read
+# <= 6.5e-7 elsewhere): the window of `h1_flips`.
+H1_FLIP_WINDOW = 1e-6
+
+
+@contextlib.contextmanager
+def h1_flips(torch, window=H1_FLIP_WINDOW):
+    """Within the block the plain encode returns h1 with every value that
+    lies within `window` of max |h1| of a bf16 rounding midpoint reflected
+    about that midpoint, so that the field tail's bf16 rounding of it goes
+    the other way: every rounding flip an encode error of that size could
+    cause, at once.  Enter it before `plain_on_card`, which takes the plain
+    encode as it finds it."""
+    from ngp_pl_torch.ops import hash_encoding as he
+
+    real = he.hash_encode_fwd_plain
+
+    def flipped(x, table, w1, spec, feats=None):
+        h = real(x, table, w1, spec, feats)
+        mid = ((h.view(torch.int32) & -65536) | 32768).view(torch.float32)
+        near = (h - mid).abs() <= window * h.abs().max()
+        return torch.where(near, 2.0 * mid - h, h)
+
+    he.hash_encode_fwd_plain = flipped
+    try:
+        yield
+    finally:
+        he.hash_encode_fwd_plain = real
+
+
 # what must be identical in two train steps of one layout from one state:
 # the pool, the strided block, or (rounds) what the rounds decided per ray
 STEP_POOL = {"csr": ("ts", "ray_idx"), "strided": ("ts", "valid"),
              "rounds": ("rm_counts", "loss_mask")}
 
 
-def _train_step_on(torch, system, model, dev, batch, win_rows=None):
+def _train_step_on(torch, system, model, dev, batch, grid_state=None):
     """Loss, gradients, pool and sample count of one train step of `model`
-    on `dev` from the system's grid (or `win_rows`), layout, budget and
-    chain."""
+    on `dev` from the system's grid (or `grid_state`; its windows where
+    the system marches with them), layout, budget and chain, on white
+    under uniform steps and on black under exponential ones."""
     from ngp_pl_torch.training.train_step import train_render
 
     rays_o, rays_d, target, noise = batch
-    if win_rows is None:
-        win_rows = system.grid_state.win_rows
+    gs = grid_state or system.grid_state
+    win_rows = gs.win_rows.to(dev) if system.window_march else None
+    bg = torch.full((3,), 1.0 if system.cfg.exp_step_factor == 0 else 0.0,
+                    device=dev)
     res, loss_of = train_render(
-        model, win_rows.to(dev), rays_o.to(dev),
-        rays_d.to(dev), noise.to(dev), torch.ones(3, device=dev),
+        model, win_rows, rays_o.to(dev), rays_d.to(dev), noise.to(dev), bg,
         tcfg=system.tcfg, rcfg=system.rcfg, n_samples=system._pool_mult,
-        chain_length=system.step_chain(), layout=system.layout)
+        chain_length=system.step_chain(), layout=system.layout,
+        occ_grid=gs.occ_grid.to(dev))
     loss = loss_of(target.to(dev))
     grads = torch.autograd.grad(loss, [w for _, _, w in model._slots()])
     return dict(loss=float(loss.detach()), grads=[t.cpu() for t in grads],
@@ -883,7 +984,7 @@ def explicit_batch(torch, system, seed, n_rays):
 
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                     n_rays=2048, alone=(), alone_tol=None,
-                    cpu_floor_by_witness=False):
+                    cpu_floor_by_witness=False, encode_floor_by_witness=False):
     """One train step's loss and gradients from the system's state on the
     card (kernels), against the same step on the CPU (plain versions) and
     on the card with every kernel replaced by its plain version; same batch,
@@ -904,7 +1005,21 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     `cpu_tol` too (a loss at the rounding floor: the rounds layout's ~1e-10
     after a fit, see ROUNDS_NOTE) is held by its pool against the CPU and
     by `card_tol` against the plain versions on the card; the record says
-    so (`cpu_gate`)."""
+    so (`cpu_gate`).
+
+    With `encode_floor_by_witness` (a fitted state) the encode kernel
+    (K1 or K3) alone is held to the larger of `card_tol` and its own
+    witness `witness_h1_flips`: the plain versions' step with every bf16
+    rounding of h1 flipped that the encode kernel's measured error could
+    flip (`h1_flips`), against the plain versions' own.  At a fitted state
+    one such flip can move the table gradient by ~1e-2 of its max (a
+    sample that dominates its row).  A step that misses the plain versions
+    on the card past `card_tol` is then held as two parts: the encode
+    kernel alone, so held, and every other kernel together, the kernels'
+    step against the step with the encode kernel alone
+    (`vs_encode_alone_on_card`, identical h1 on both sides), to
+    `card_tol` itself (`card_gate`).  No other kernel, and no step, is
+    held to the witness."""
     from ngp_pl_torch.models.ngp import NGP
 
     cpu_ngp = NGP(system.cfg, device="cpu")
@@ -931,6 +1046,16 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
         vs_cpu = _step_err(torch, names, card, ref)
         vs_card = _step_err(torch, names, card, plain)
         brief = ("loss_rel_err", "grad_rel_err_max", "grad_l2_err_max")
+        encode, flips, rest = path[0], None, None
+        if encode_floor_by_witness:
+            with h1_flips(torch), plain_on_card(*path):
+                flips = {k: v for k, v in _step_err(
+                    torch, names, _train_step_on(
+                        torch, system, system.ngp, system.dev, batch),
+                    plain).items() if k in brief}
+            encode_tol = (max(card_tol[0], flips["loss_rel_err"]),
+                          max(card_tol[1], flips["grad_rel_err_max"]))
+
         vs_alone = {}
         for key in path:
             with plain_on_card(*(k for k in path if k != key)):
@@ -941,6 +1066,9 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                     "pool_identical",)}
             if key in alone:
                 failed |= not within(vs_alone[key], alone_tol)
+            if key == encode and flips is not None:
+                failed |= not within(vs_alone[key], encode_tol)
+                rest = _step_err(torch, names, card, one)
         out = dict(seed=seed, samples=card["samples"],
                    loss_card=card["loss"], loss_cpu=ref["loss"],
                    vs_cpu=vs_cpu, vs_plain_on_card=vs_card,
@@ -950,8 +1078,14 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                                                   ref).items() if k in brief},
                    witness_all_plain_vs_cpu={
                        k: v for k, v in _step_err(torch, names, plain,
-                                                  ref).items() if k in brief})
-        if seed == seeds[0] and system.layout == "csr":
+                                                  ref).items() if k in brief},
+                   **({"witness_h1_flips": flips, "encode_tol": encode_tol,
+                       "vs_encode_alone_on_card": {
+                           k: v for k, v in rest.items()
+                           if k in brief + ("pool_identical",)}}
+                      if flips else {}))
+        if (seed == seeds[0] and system.layout == "csr"
+                and system.cfg.cascades == 1):
             out["tpu_staged_samples"] = tpu_staged_samples(
                 torch, system, *batch[:2], batch[3])
         cpu_ok = within(vs_cpu, cpu_tol)
@@ -963,7 +1097,14 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                                "pool and against the plain versions on the "
                                "card")
             cpu_ok = True
-        failed |= not (cpu_ok and within(vs_card, card_tol))
+        card_ok = within(vs_card, card_tol)
+        if not card_ok and flips is not None and within(rest, card_tol):
+            out["card_gate"] = (f"past the limit against the plain versions "
+                                f"on the card: {encode} alone within "
+                                f"witness_h1_flips, the other kernels "
+                                f"within the limit against {encode} alone")
+            card_ok = True
+        failed |= not (cpu_ok and card_ok)
         batches.append(out)
 
     def worst(side, key):
@@ -986,6 +1127,13 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                witness_all_plain_vs_cpu_max=[
                    worst("witness_all_plain_vs_cpu", "loss_rel_err"),
                    worst("witness_all_plain_vs_cpu", "grad_rel_err_max")],
+               **({"witness_h1_flips_max": [
+                   worst("witness_h1_flips", "loss_rel_err"),
+                   worst("witness_h1_flips", "grad_rel_err_max")],
+                   "vs_encode_alone_on_card_max": [
+                       worst("vs_encode_alone_on_card", "loss_rel_err"),
+                       worst("vs_encode_alone_on_card", "grad_rel_err_max")]}
+                  if encode_floor_by_witness else {}),
                batches=batches)
     if failed:
         raise AssertionError(f"card vs CPU train step disagrees: {out}")
@@ -993,18 +1141,20 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
 
 
 def trained_render(torch, system, downsample=6.25):
-    """Test view 0 at 800x800 of the trained field through the round
-    renderer: one warm-up frame, then one fenced frame."""
+    """Test view 0 at 800x800 of the trained field through the system's
+    round renderer, on the system's scene (its scale and background): one
+    warm-up frame, then one fenced frame."""
     from ngp_pl_torch.datasets.synthetic import SyntheticDataset
-    from ngp_pl_torch.models.rendering import RoundRenderer
     from ngp_pl_torch.training.metrics import psnr, ssim
 
+    scene = system.test_dataset
     ds = SyntheticDataset(split="test", downsample=downsample,
+                          world_scale=scene.world_scale, bg=scene.bg,
                           device=system.dev)
     w, h = ds.img_wh
     dirs = torch.from_numpy(ds.directions).to(system.dev)
     pose = torch.from_numpy(ds.poses[0]).to(system.dev)
-    renderer = RoundRenderer(system.ngp, system.rcfg)
+    renderer = system.renderer()
     occ = system.grid_state.occ_grid
     counters = _counters()
     with torch.no_grad():
@@ -1118,7 +1268,7 @@ def ckpt_roundtrip(torch, res, tcfg):
 
 def train_path(torch, tcfg, card, suffix, trained_batches,
                seeded_tol=STEP_TOL, alone=(), at_step=True,
-               seeded_cpu_tol=None):
+               seeded_cpu_tol=None, encode_floor_by_witness=False):
     """The train path of one geometry: the seeded step against the CPU
     (limit `seeded_cpu_tol`, by default `seeded_tol`) and the plain
     versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
@@ -1126,7 +1276,9 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     `trained_batches`, the trained field's 800x800 render and a profiled
     block.  The kernels named in `alone` are held, each alone, to STEP_TOL
     (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card.  Then, if `at_step`, the encode kernel and the
+    on the card; with `encode_floor_by_witness` the trained step's encode
+    kernel is held by its own witness (`train_reference`).  Then, if
+    `at_step`, the encode kernel and the
     table-gradient kernel on the input of one more train step
     (`table_grad_inputs.capture`: the CSR pool's positions and gradients,
     ray by ray, zero rows on its unused slots; in the strided layout the
@@ -1151,7 +1303,8 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
          **train_reference(torch, system, TRAINED_CPU_TOL,
                            TRAINED_KERNEL_TOL, seeds=trained_batches,
                            alone=alone, alone_tol=TRAINED_KERNEL_TOL,
-                           cpu_floor_by_witness=system.layout == "rounds")})
+                           cpu_floor_by_witness=system.layout == "rounds",
+                           encode_floor_by_witness=encode_floor_by_witness)})
     log({"phase": "trained_render" + suffix, "card": card,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
@@ -1173,6 +1326,101 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     del system, x, gr, w1
     torch.cuda.empty_cache()
     return train, at_step
+
+
+MC_STEPS = 512                 # the scale-4 fit (bench_mc: 4096)
+TRAINED_BATCHES_MC = (7, 8, 9, 10)
+
+
+def capture_tail(system):
+    """Copies of the arguments K7 and K8 receive in the next
+    `system.step()`, which runs as usual.  The wrappers count their
+    launches on the module's name, which holds the spy meanwhile: the
+    step's launches land on the spy, not on the counts."""
+    from ngp_pl_torch.ops import field_tail as ft
+
+    seen = {}
+    real = {"K7": ("field_tail_cuda", ft.field_tail_cuda),
+            "K8": ("field_tail_bwd_cuda", ft.field_tail_bwd_cuda)}
+
+    def spy(key):
+        def call(*args):
+            seen.setdefault(key, tuple(a.clone() for a in args))
+            return real[key][1](*args)
+        call.launches = 0
+        return call
+
+    try:
+        for key, (attr, _) in real.items():
+            setattr(ft, attr, spy(key))
+        system.step()
+    finally:
+        for attr, fn in real.values():
+            setattr(ft, attr, fn)
+    return seen
+
+
+def mc_path(torch, card):
+    """The multi-cascade path (`bench_mc`'s scene and model: scale 4, four
+    cascades, steps growing by 1/256, L8F4 at full width, 8 views of the
+    scene scaled by 8 at 96x96 on black, `auto` layout): K1 and K2+K5 at
+    random points of the scale-4 grid (finest level 8192); the seeded step
+    against the CPU and the plain versions on the card; `fit` of MC_STEPS
+    steps from the seed, counted from 0 just before, every block logged
+    with the grid's occupied share per cascade and its rays/s; the trained
+    step on TRAINED_BATCHES_MC; an 800x800 frame of the trained field and
+    the test views' PSNR/SSIM; a profiled block; then K1 and K2+K5 on one
+    more train step's input and K7 and K8 on the next one's.  Returns the
+    fit's record and the kernels' records."""
+    from ngp_pl_torch.benchmarking.bench_mc import bench_mc_system
+    from ngp_pl_torch.benchmarking.table_grad_inputs import capture
+
+    system = bench_mc_system("cuda", MC_STEPS)
+    recs = {"K1": {"at_scale4": check_fwd(torch, system.ngp, "K1")},
+            "K2+K5": {"at_scale4": check_bwd(torch, system.ngp, "K2+K5")}}
+    for key, rec in recs.items():
+        log({"phase": "kernels", "kernel": key, "geometry": "scale4",
+             **rec["at_scale4"]})
+    system.on_train_start()
+    system._refresh_grid(0)
+    log({"phase": "train_reference_mc", "state": "seeded",
+         **train_reference(torch, system, STEP_TOL, STEP_TOL,
+                           cpu_floor_by_witness=True)})
+    del system
+    torch.cuda.empty_cache()
+    system = bench_mc_system("cuda", MC_STEPS)
+    train = train_fit(torch, system, MC_STEPS)
+    log({"phase": "train_mc", "card": card, "scale": system.cfg.scale,
+         "cascades": system.cfg.cascades,
+         "window_march": system.window_march, **train})
+    log({"phase": "train_reference_mc", "state": "trained",
+         **train_reference(torch, system, TRAINED_CPU_TOL_MC,
+                           TRAINED_KERNEL_TOL_MC, seeds=TRAINED_BATCHES_MC,
+                           cpu_floor_by_witness=True,
+                           encode_floor_by_witness=True)})
+    log({"phase": "trained_render_mc", "card": card,
+         **trained_render(torch, system),
+         "test_views": system.validate(save_images=False)})
+    log({"phase": "profile", "of": "train_block_mc", "card": card,
+         "layout": system.layout, "S": system._pool_mult,
+         **profile_block(torch, system, train["block_ms"])})
+    x, gr, w1 = capture(system)
+    recs["K1"]["at_train_step_mc"] = _fwd_record(
+        torch, "K1", x, system.ngp.encode_table(), w1, system.ngp.spec,
+        with_feats=True)
+    recs["K2+K5"]["at_train_step_mc"] = _bwd_record(
+        torch, "K2+K5", x, gr, w1, system.ngp.spec)
+    del x, gr, w1
+    tail = capture_tail(system)
+    recs["K7"] = {"at_train_step_mc": _k7_record(torch, tail["K7"])}
+    recs["K8"] = {"at_train_step_mc": _k8_record(torch, tail["K8"])}
+    for key, rec in recs.items():
+        log({"phase": "kernels", "kernel": key, "input": "train_step_mc",
+             "card": card, "pool_mult": system._pool_mult,
+             "layout": system.layout, **rec["at_train_step_mc"]})
+    del system, tail
+    torch.cuda.empty_cache()
+    return train, recs
 
 
 RESUME_STEPS = 256             # fitted before the save, and again after
@@ -1235,7 +1483,7 @@ def resume_path(torch):
     step_err = _step_err(
         torch, names,
         _train_step_on(torch, saved, loaded.ngp, saved.dev, batch,
-                       win_rows=loaded.grid_state.win_rows),
+                       grid_state=loaded.grid_state),
         _train_step_on(torch, saved, saved.ngp, saved.dev, batch))
     if not (step_err["pool_identical"]
             and step_err["loss_rel_err"] <= TRAINED_KERNEL_TOL[0]
@@ -1312,6 +1560,16 @@ def bench_path(torch):
                 seconds=time.perf_counter() - t0, launches=launches)
 
 
+def _bound_shares(rec, at="main"):
+    """(input, bound_share) of a kernel's record and of the records of its
+    other inputs nested in it."""
+    for key, v in rec.items():
+        if key == "bound_share":
+            yield at, v
+        elif isinstance(v, dict):
+            yield from _bound_shares(v, key)
+
+
 def main() -> int:
     import torch
 
@@ -1384,7 +1642,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
     train, at_step = train_path(torch, train_config(), card, "",
-                                TRAINED_BATCHES)
+                                TRAINED_BATCHES, encode_floor_by_witness=True)
     for key, rec in at_step.items():
         checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
@@ -1413,6 +1671,12 @@ def main() -> int:
         for key, rec in at_step.items():
             checks[key]["at_train_step" + suffix] = rec
         launches["train" + suffix] = train["launches"]
+
+    # the multi-cascade scene at scale 4, counted the same way
+    train, mc = mc_path(torch, card)
+    for key, rec in mc.items():
+        checks[key].update(rec)
+    launches["train_mc"] = train["launches"]
 
     # the L16F2 render and train paths, counted the same way
     tcfg = tcfgs["l16f2"]
@@ -1473,7 +1737,7 @@ def main() -> int:
                 "device_ms", "fill_ms", "call_device_ms", "bound_share",
                 "library_device_ms", "input", "at_runs",
                 "at_train_pool", "at_train_step",
-                "at_train_step_strided",
+                "at_train_step_strided", "at_scale4", "at_train_step_mc",
                 "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
                 "tol_rel_vs_float64_sums") if f in k}})
     # K9 on its own path, the bench: times, bounds and launches from the
@@ -1505,6 +1769,11 @@ def main() -> int:
             "library_note": ("Tensor.sum over levels of the rows as f32, "
                              "torch.zeros for ft2" if "library_ms" in k
                              else "the contraction is the kernel's own")})
+    over = [(e["name"], at, share) for e in entries
+            for at, share in _bound_shares(e) if share > 1.0]
+    if over:
+        raise AssertionError(f"faster than the bound, so the bound or the "
+                             f"timing is wrong: {over}")
     print(card, flush=True)
     log({"kernels": entries, "seconds": time.perf_counter() - t_start})
     log({"ok": True, "device": {"platform": "gpu",

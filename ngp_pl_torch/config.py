@@ -99,7 +99,7 @@ class TrainConfig:
     num_epochs: int = 30
     iters_per_epoch: int = 1000
     lr: float = 1e-2
-    random_bg: bool = False     # exp-stepping scenes only: refused for now
+    random_bg: bool = False     # exp-stepping scenes: a random train bg
     # optimizer constants (reference train.py:131-137)
     adam_eps: float = 1e-15
     lr_final_div: float = 30.0                 # cosine anneal floor = lr/30

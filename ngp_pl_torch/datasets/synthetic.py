@@ -3,9 +3,14 @@ ngp_pl_tpu/datasets/synthetic.py).
 
 Soft hollow coloured spheres inside [-0.4, 0.4]^3, seen by cameras on a
 radius-1.5 sphere looking at the origin (the NeRF-synthetic convention, white
-background).  Intrinsics, poses and seeds are the JAX package's, so both
-packages see the same views; ground-truth images are rendered on demand on
-the dataset's device by a port of the JAX package's exact renderer.
+background).  `world_scale` ws scales the scene geometrically (centres,
+radii, edge widths and camera radius x ws, density / ws), so the images do
+not change while the content spans [-0.4 ws, 0.4 ws]^3: at ws=8 it fills
+the scale-4 box of the multi-cascade scenes, which train on a black
+background (`bg=0`).  Intrinsics, poses and seeds are the JAX package's,
+so both packages see the same views; ground-truth images are rendered on
+demand on the dataset's device by a port of the JAX package's exact
+renderer.
 """
 from __future__ import annotations
 
@@ -42,18 +47,21 @@ def _lookat_pose(cam_pos: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
-def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor):
-    """Dense volume render of the analytic field at _N_STEPS uniform depths
-    in [0.6, 2.6], white background.  Returns (rgb (N, 3), depth (N,),
-    opacity (N,))."""
+def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor,
+              world_scale: float = 1.0, bg: float = 1.0):
+    """Dense volume render of the analytic field scaled by `world_scale` at
+    _N_STEPS uniform depths in [0.6, 2.6] x world_scale, on the background
+    `bg` (synthetic.py:71-130).  Returns (rgb (N, 3), depth (N,), opacity
+    (N,))."""
     dev = rays_o.device
+    ws = float(world_scale)
     centers = torch.tensor(np.stack([s[0] for s in _SPHERES]),
-                           dtype=torch.float32, device=dev)
+                           dtype=torch.float32, device=dev) * ws
     radii = torch.tensor([s[1] for s in _SPHERES], dtype=torch.float32,
-                         device=dev)
+                         device=dev) * ws
     colors = torch.tensor(np.stack([s[2] for s in _SPHERES]),
                           dtype=torch.float32, device=dev)
-    ts = torch.linspace(0.6, 2.6, _N_STEPS, dtype=torch.float32)
+    ts = torch.linspace(0.6 * ws, 2.6 * ws, _N_STEPS, dtype=torch.float32)
     dt = float(ts[1] - ts[0])
     d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     N = rays_o.shape[0]
@@ -63,32 +71,37 @@ def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor):
     for t in ts.tolist():
         xyz = rays_o + t * d
         dist = torch.linalg.norm(xyz[:, None, :] - centers[None], dim=-1)
-        outer = torch.clamp((radii[None] - dist) / _EDGE, 0.0, 1.0)
-        inner = torch.clamp((dist - (radii[None] - _THICK)) / _EDGE, 0.0, 1.0)
+        outer = torch.clamp((radii[None] - dist) / (_EDGE * ws), 0.0, 1.0)
+        inner = torch.clamp((dist - (radii[None] - _THICK * ws))
+                            / (_EDGE * ws), 0.0, 1.0)
         inside, best = (outer * inner).max(dim=1)
-        sigma = _DENSITY * inside
+        sigma = (_DENSITY / ws) * inside
         rgb = torch.where(inside[:, None] > 0, colors[best], 1.0)
         alpha = 1.0 - torch.exp(-sigma * dt)
         w = alpha * T
         rgb_acc += w[:, None] * rgb
         depth_acc += w * t
         T = T * (1.0 - alpha)
-    return rgb_acc + T[:, None], depth_acc, 1.0 - T
+    return rgb_acc + bg * T[:, None], depth_acc, 1.0 - T
 
 
 class SyntheticDataset:
     """Poses, intrinsics and ground truth of one split: `n_train` (24) train
     or `n_test` (4) test views of img_size x img_size * downsample pixels
     (128 by default), cameras drawn from `seed` (train) or `seed + 1` (test),
-    as ngp_pl_tpu/datasets/synthetic.py:151-189 does.
+    as ngp_pl_tpu/datasets/synthetic.py:151-189 does; `world_scale` and
+    the background `bg` as there (see the module note).
 
     `rays` is the ground-truth store (n_img, H*W, 3) on the dataset's
     device, rendered at first use; test views are also rendered one at a
     time by `image`."""
 
     def __init__(self, split="train", downsample=1.0, device="cuda",
-                 img_size=128, n_train=24, n_test=4, seed=0):
+                 img_size=128, n_train=24, n_test=4, seed=0,
+                 world_scale=1.0, bg=1.0):
         self.split = split
+        self.world_scale = float(world_scale)
+        self.bg = float(bg)
         self.device = resolve_device(device)
         w = h = int(img_size * downsample)
         f = 1.2 * w
@@ -104,7 +117,7 @@ class SyntheticDataset:
         for i in range(n):
             theta = 2 * np.pi * i / n + rng.uniform(0, 0.1)
             phi = np.deg2rad(rng.uniform(-55, -15))
-            cam = 1.5 * np.array([
+            cam = 1.5 * self.world_scale * np.array([
                 np.cos(theta) * np.cos(phi),
                 np.sin(theta) * np.cos(phi),
                 -np.sin(phi),
@@ -118,7 +131,8 @@ class SyntheticDataset:
         rd = self.directions @ pose[:, :3].T
         ro = np.broadcast_to(pose[:, 3], rd.shape)
         rgb, _, _ = render_gt(torch.tensor(ro, device=self.device),
-                              torch.tensor(rd, device=self.device))
+                              torch.tensor(rd, device=self.device),
+                              world_scale=self.world_scale, bg=self.bg)
         return rgb
 
     @property

@@ -36,6 +36,7 @@ from ngp_pl_torch.models.occupancy import (
     update_density_grid,
 )
 from ngp_pl_torch.models.rendering import RoundRenderer
+from ngp_pl_torch.ops.ray_march import window_march_mc_ok
 from ngp_pl_torch.training.checkpoint import load_slim_checkpoint
 from ngp_pl_torch.training.metrics import psnr, ssim
 
@@ -85,7 +86,10 @@ def evaluate(tcfg: TrainConfig, device="cuda",
             generator=torch.Generator().manual_seed(tcfg.seed))
         occ_grid = state.occ_grid
 
-    renderer = RoundRenderer(ngp, rcfg)
+    # the windows of the JAX system's test renderer (system.py:78-89); one
+    # cascade with uniform steps reads the grid, whose bits they equal
+    renderer = RoundRenderer(ngp, rcfg, use_window=window_march_mc_ok(
+        test_ds.directions, cfg.exp_step_factor, cfg.cascades))
     dirs = torch.from_numpy(test_ds.directions).to(dev)
     w, h = test_ds.img_wh
     n = len(test_ds.poses) if max_images is None else min(

@@ -4,7 +4,10 @@ package's three layouts (reference rendering.py:121-163) and test-view
 rendering (span pre-pass, cull and the alive-ray round loop,
 `RoundRenderer`, reference rendering.py:46-118).
 
-Train render: scene-box hits -> windowed march -> field (K1 + K7,
+Train render: scene-box hits -> march (the 8-step windowed march for one
+cascade with uniform steps; the general march, `march_rays_train`, with
+the two-window chain or the grid for multi-cascade / exponential steps and
+for cameras past `segment_march_dmax_ok`) -> field (K1 + K7,
 differentiable) -> compositor -> background, into
 - the CSR pool (`render_rays_train_csr`): a flat pool shared by need;
 - the strided block (`render_rays_train`): the first S samples of each ray
@@ -17,7 +20,9 @@ A frame goes: scene-box hits -> occupied-span pre-pass over a dilated
 super-grid -> cull of rays with no occupied span -> chunks of the surviving
 rays, each through rounds of march (first S occupied samples) -> field
 (K1 + K7) -> incremental compositing, until every ray has converged, left
-the box or used max_samples.
+the box or used max_samples.  Multi-cascade scenes have no span pass: the
+frame goes in chunks of consecutive rays from their box hits, on a black
+background, with at least 4 samples per round.
 
 Each round picks its (slots, n_samples, chain) from the JAX package's bucket
 ladder: the smallest bucket whose slot count still fits the alive rays.  The
@@ -40,11 +45,13 @@ from ngp_pl_torch.config import MAX_SAMPLES, NEAR_DISTANCE, SQRT3, RenderConfig
 from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.ops.intersection import ray_aabb_intersect_single
 from ngp_pl_torch.ops.ray_march import (
-    _f32,
     _fma,
+    calc_dt,
     march_rays_test_round,
+    march_rays_train,
     march_rays_train_strided,
     march_rays_train_window,
+    occupancy_windows,
     occupied_span,
     occupied_span_prep,
 )
@@ -71,18 +78,22 @@ def scene_hits(rays_o, rays_d, scale: float):
 
 
 def compute_scene_chain_length(poses, directions, scale: float,
+                               exp_step_factor: float = 0.0,
                                max_samples: int = MAX_SAMPLES,
+                               grid_size: int = 128,
                                subsample: int = 4096) -> int:
-    """Static dt-chain bound of a uniform-step scene: the longest in-box
-    segment of any training ray, in chain steps of dt_min, rounded up to
-    128 plus 128 (rendering.py:54-100; its exp-stepping branch comes with
-    the multi-cascade slice)."""
+    """Static dt-chain bound of a scene (rendering.py:54-100): the chain
+    steps the longest in-box segment of any training ray needs, rounded up
+    to 128 plus 128, at most 2 max_samples.  Under uniform steps a segment
+    is range / dt_min steps; under exponential ones the clamped-geometric
+    chain is stepped from the nearest start across the longest range."""
     dt_min = float(SQRT3) / max_samples
+    dt_max = float(SQRT3) * 2 * scale / grid_size
     poses = np.asarray(poses)
     directions = np.asarray(directions)
     if directions.shape[0] > subsample:
         directions = directions[::directions.shape[0] // subsample]
-    range_max = 0.0
+    t1_min, range_max = np.inf, 0.0
     for pose in poses:
         rd = directions @ pose[:, :3].T
         ro = pose[:, 3][None, :]
@@ -95,33 +106,58 @@ def compute_scene_chain_length(poses, directions, scale: float,
         if not hit.any():
             continue
         near = np.maximum(t1[hit], NEAR_DISTANCE)
+        t1_min = min(t1_min, float(near.min()))
         range_max = max(range_max, float((t2[hit] - near).max()))
-    if range_max <= 0:
+    if not np.isfinite(t1_min) or range_max <= 0:
         return max_samples
-    steps = int(math.ceil(range_max / dt_min))
+    if exp_step_factor == 0.0:
+        steps = int(math.ceil(range_max / dt_min))
+    else:
+        t, steps, t_end = t1_min, 0, t1_min + range_max
+        while t < t_end and steps < 4 * max_samples:
+            t += min(max(t * exp_step_factor, dt_min), dt_max)
+            steps += 1
     steps = min(int(-(-steps // 128) * 128) + 128, 2 * max_samples)
     return max(steps, 128)
 
 
+def _default_chain(cfg, rcfg) -> int:
+    """The march's chain when the caller gives none (rendering.py:133-135):
+    max_samples, twice that under exponential steps."""
+    return rcfg.max_samples * (1 if cfg.exp_step_factor == 0 else 2)
+
+
 def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                           rcfg: RenderConfig, pool_mult: Optional[int] = None,
-                          chain_length: int = 0) -> Dict[str, torch.Tensor]:
-    """Differentiable train render into the CSR pool, windowed-march branch
-    (rendering.py:186-238, 275-305).  Single cascade and uniform steps only;
-    the caller checks `segment_march_dmax_ok`.  Gradients reach the field's
-    parameters; positions are o + t * d with t and the rays held fixed.
-    Returns the compositor's outputs plus the pool and the march's demand
-    statistics."""
-    cfg = _train_cfg(ngp)
+                          chain_length: int = 0, occ_grid=None
+                          ) -> Dict[str, torch.Tensor]:
+    """Differentiable train render into the CSR pool (rendering.py:186-305).
+    With `win_rows` under one cascade and uniform steps the 8-step windowed
+    march (the caller checks `segment_march_dmax_ok`); otherwise
+    `march_rays_train` on `occ_grid`, with the two-window chain where
+    `win_rows` is given (the caller checks `window_march_mc_ok`).
+    Gradients reach the field's parameters; positions are o + t * d with t
+    and the rays held fixed.  Returns the compositor's outputs plus the
+    pool and the march's demand statistics."""
+    cfg = ngp.cfg
     N = rays_o.shape[0]
     hits = scene_hits(rays_o, rays_d, cfg.scale)
-    chain = chain_length or rcfg.max_samples
+    chain = chain_length or _default_chain(cfg, rcfg)
+    pool_size = N * (pool_mult or rcfg.train_pool_mult)
     with torch.no_grad():
-        m = march_rays_train_window(
-            rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
-            grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-            pool_size=N * (pool_mult or rcfg.train_pool_mult),
-            chain_length=chain)
+        if (win_rows is not None and cfg.cascades == 1
+                and cfg.exp_step_factor == 0.0):
+            m = march_rays_train_window(
+                rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
+                grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
+                pool_size=pool_size, chain_length=chain)
+        else:
+            m = march_rays_train(
+                rays_o, rays_d, hits, occ_grid, noise,
+                cascades=cfg.cascades, scale=cfg.scale,
+                exp_step_factor=cfg.exp_step_factor,
+                grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
+                pool_size=pool_size, chain_length=chain, win_rows=win_rows)
     ridx = torch.clamp(m.ray_idx, 0, N - 1)
     o, d = rays_o[ridx], rays_d[ridx]
     xyz = _fma(m.ts[:, None], d, o)
@@ -140,20 +176,25 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
 
 def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                       rcfg: RenderConfig, n_samples: Optional[int] = None,
-                      chain_length: int = 0) -> Dict[str, torch.Tensor]:
-    """Differentiable train render into the strided (N, S) layout,
-    windowed-march branch (rendering.py:103-183).  A ray with more than S
-    occupied samples is cut by the march and left out of the loss
-    (`loss_mask`): a partial render would bias it towards its entry slab.
-    Invalid slots sit at their ray's origin (t = 0) with zero weight."""
-    cfg = _train_cfg(ngp)
+                      chain_length: int = 0, occ_grid=None
+                      ) -> Dict[str, torch.Tensor]:
+    """Differentiable train render into the strided (N, S) layout
+    (rendering.py:103-183); the march takes `win_rows` or `occ_grid` as
+    the JAX package's dispatch does (`march_rays_train_strided`).  A ray
+    with more than S occupied samples is cut by the march and left out of
+    the loss (`loss_mask`): a partial render would bias it towards its
+    entry slab.  Invalid slots sit at their ray's origin (t = 0) with zero
+    weight."""
+    cfg = ngp.cfg
     S = n_samples or rcfg.train_pool_mult
     hits = scene_hits(rays_o, rays_d, cfg.scale)
     with torch.no_grad():
         m = march_rays_train_strided(
             rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
             grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-            n_samples=S, chain_length=chain_length or rcfg.max_samples)
+            n_samples=S, chain_length=chain_length or _default_chain(
+                cfg, rcfg), cascades=cfg.cascades,
+            exp_step_factor=cfg.exp_step_factor, occ_grid=occ_grid)
     xyz = _fma(m.ts[..., None], rays_d[:, None, :], rays_o[:, None, :])
     sigmas, rgbs = ngp.forward_rays(xyz, rays_d)
     out = composite_train_strided(sigmas, rgbs, m.deltas, m.ts, m.valid,
@@ -180,7 +221,7 @@ def _at_rows(full, raw, delta, add: bool):
 def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
                              *, rcfg: RenderConfig, n_samples: int = 16,
                              chain_length: int = 256, n_rounds: int = 4,
-                             lambda_distortion: float = 0.0
+                             lambda_distortion: float = 0.0, occ_grid=None
                              ) -> Dict[str, torch.Tensor]:
     """Differentiable train render in `n_rounds` rounds
     (rendering.py:308-478).  Round r gives max(256, N >> r) slots to the
@@ -192,8 +233,9 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
     loss.  With `lambda_distortion` the DVGO distortion accumulates per
     round from the carried prefix sums of w and w t.  Writes to the
     per-ray state use the unclamped sentinel: clamping it onto ray N - 1
-    would collide with that ray's own write."""
-    cfg = _train_cfg(ngp)
+    would collide with that ray's own write.  The rounds march as the test
+    round does for `win_rows` and `occ_grid` (`march_rays_test_round`)."""
+    cfg = ngp.cfg
     N = rays_o.shape[0]
     S = n_samples
     dev = rays_o.device
@@ -201,7 +243,9 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
     hits = scene_hits(rays_o, rays_d, cfg.scale)
     t1, t_end = hits[:, 0], hits[:, 1]
     t_cur = torch.where(
-        t1 >= 0, _fma(noise, _f32(SQRT3 / rcfg.max_samples), t1), t_end)
+        t1 >= 0, _fma(noise, calc_dt(t1, cfg.exp_step_factor,
+                                     rcfg.max_samples, cfg.grid_size,
+                                     cfg.scale), t1), t_end)
     T = torch.ones(N, device=dev)
     rgb = torch.zeros((N, 3), device=dev)
     depth = torch.zeros(N, device=dev)
@@ -228,8 +272,9 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
         ro, rd = rays_o[idx], rays_d[idx]
         with torch.no_grad():
             ts, dts, valid, t_next, n_eff = march_rays_test_round(
-                ro, rd, t_cur[idx], t_end[idx], None, cascades=1,
-                scale=cfg.scale, exp_step_factor=0.0,
+                ro, rd, t_cur[idx], t_end[idx], occ_grid,
+                cascades=cfg.cascades, scale=cfg.scale,
+                exp_step_factor=cfg.exp_step_factor,
                 grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
                 n_samples=S, chain_length=chain_length, win_rows=win_rows)
         valid = valid & sel[:, None]
@@ -281,15 +326,6 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
     }
 
 
-def _train_cfg(ngp):
-    cfg = ngp.cfg
-    if cfg.cascades != 1 or cfg.exp_step_factor != 0.0:
-        raise NotImplementedError(
-            "the train render covers single-cascade scenes (scale <= 0.5); "
-            "multi-cascade / exp stepping is a later slice")
-    return cfg
-
-
 def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:
     """(slots, n_samples, chain) buckets, largest first: a 2x slot ladder
     with n_samples growing 8 -> 64 as the alive set shrinks; the first
@@ -309,26 +345,41 @@ def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:
 
 
 class RoundRenderer:
-    """Renders rays or camera poses with a fixed model and occupancy grid."""
+    """Renders rays or camera poses with a fixed model and occupancy grid
+    (`make_device_round_renderer`, rendering.py:588-980).
 
-    def __init__(self, ngp, rcfg: RenderConfig, chunk: int = 131072):
+    Under exponential steps the first bucket holds at least 4 samples per
+    ray (`min_s`) and there is no span pass.  `use_window` is the JAX
+    package's flag (its systems set it where `segment_march_dmax_ok` or
+    `window_march_mc_ok` holds): under multi-cascade or exponential steps
+    the rounds then read the two-window chain, whose conservative
+    fallbacks add samples; for one cascade with uniform steps the rounds
+    read the grid, whose bits the 8-step windows equal."""
+
+    def __init__(self, ngp, rcfg: RenderConfig, chunk: int = 131072,
+                 use_window: bool = False):
         cfg = ngp.cfg
-        if cfg.cascades != 1 or cfg.exp_step_factor != 0.0:
-            raise NotImplementedError(
-                "the round renderer covers single-cascade scenes (scale <= "
-                "0.5); multi-cascade / exp stepping is a later slice")
         self.ngp = ngp
         self.rcfg = rcfg
         self.chunk = chunk
-        self.buckets = bucket_ladder(chunk, 1)
-        self._span_cache: list = []
+        self.buckets = bucket_ladder(
+            chunk, 1 if cfg.exp_step_factor == 0 else 4)
+        self.use_span = cfg.cascades == 1 and cfg.exp_step_factor == 0.0
+        self.use_window_mc = use_window and not self.use_span
+        self._grid_cache: list = []
 
-    def _span_grid(self, occ_grid):
-        """Dilated super-grid, computed once per occupancy grid."""
-        if not (self._span_cache and self._span_cache[0] is occ_grid):
-            self._span_cache[:] = [occ_grid, occupied_span_prep(
-                occ_grid, grid_size=self.ngp.cfg.grid_size)]
-        return self._span_cache[1]
+    def _packed(self, occ_grid):
+        """The span pass's dilated super-grid or the two-window chain's
+        windows, computed once per occupancy grid."""
+        if not (self._grid_cache and self._grid_cache[0] is occ_grid):
+            if self.use_span:
+                packed = occupied_span_prep(
+                    occ_grid, grid_size=self.ngp.cfg.grid_size)
+            else:
+                packed = (occupancy_windows(occ_grid) if self.use_window_mc
+                          else None)
+            self._grid_cache[:] = [occ_grid, packed]
+        return self._grid_cache[1]
 
     def _bucket(self, n_alive: int) -> Tuple[int, int, int]:
         branch = sum(s >= n_alive for s, _, _ in self.buckets[1:])
@@ -337,6 +388,7 @@ class RoundRenderer:
     @torch.no_grad()
     def _render_chunk(self, occ_grid, rays_o, rays_d, t_start, t_end):
         cfg, rcfg = self.ngp.cfg, self.rcfg
+        win_rows = None if self.use_span else self._packed(occ_grid)
         N = rays_o.shape[0]
         dev = rays_o.device
         t_cur = t_start.clone()
@@ -358,7 +410,7 @@ class RoundRenderer:
                 ro, rd, t_cur[idx], te, occ_grid, cascades=cfg.cascades,
                 scale=cfg.scale, exp_step_factor=cfg.exp_step_factor,
                 grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-                n_samples=n_s, chain_length=chain)
+                n_samples=n_s, chain_length=chain, win_rows=win_rows)
             xyz = ro[:, None, :] + ts[..., None] * rd[:, None, :]
             dirs = rd[:, None, :].expand(n, n_s, 3)
             sigmas, rgbs = self.ngp(xyz.reshape(n * n_s, 3),
@@ -391,7 +443,9 @@ class RoundRenderer:
             bg_color = 1.0 if cfg.exp_step_factor == 0 else 0.0
         N = rays_o.shape[0]
         dev = rays_o.device
-        span_grid = self._span_grid(occ_grid)
+        if not self.use_span:
+            return self._render_unspanned(occ_grid, rays_o, rays_d, bg_color)
+        span_grid = self._packed(occ_grid)
         dt_min = SQRT3 / self.rcfg.max_samples
         t1_all, t2_all, alive_all = [], [], []
         for i in range(0, N, self.chunk):
@@ -421,6 +475,27 @@ class RoundRenderer:
         return {"rgb": rgb, "depth": depth, "opacity": opacity,
                 "total_samples": total, "rounds": rounds,
                 "alive_rays": int(idx.numel())}
+
+    def _render_unspanned(self, occ_grid, rays_o, rays_d, bg_color):
+        """Chunks of consecutive rays from their box hits
+        (rendering.py:939-968): each chunk's alive count, and so its
+        buckets, counts the rays of that chunk that hit the box.  The JAX
+        package pads a short last chunk with rays from (1, 1, 1) along
+        (1, 1, 1), which count there; here it holds the real rays only."""
+        parts, total, rounds, alive = [], 0, 0, 0
+        for i in range(0, rays_o.shape[0], self.chunk):
+            ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
+            hits = scene_hits(ro, rd, self.ngp.cfg.scale)
+            r, d, o, ns, nr = self._render_chunk(occ_grid, ro, rd,
+                                                 hits[:, 0], hits[:, 1])
+            parts.append((r, d, o))
+            total += int(ns)
+            rounds += nr
+            alive += int((hits[:, 0] >= 0).sum())
+        rgb, depth, opacity = (torch.cat(p) for p in zip(*parts))
+        return {"rgb": rgb + bg_color * (1.0 - opacity[:, None]),
+                "depth": depth, "opacity": opacity, "total_samples": total,
+                "rounds": rounds, "alive_rays": alive}
 
     def render_pose(self, occ_grid, directions, pose,
                     bg_color: Optional[float] = None) -> Dict:

@@ -1,6 +1,8 @@
 """Occupancy-guided ray marching (counterpart of the test round, the occupied
-span and the windowed train marches, CSR and strided, of
-ngp_pl_tpu/ops/ray_march.py; reference models/csrc/raymarching.cu).
+span and the train marches, CSR and strided, of
+ngp_pl_tpu/ops/ray_march.py; reference models/csrc/raymarching.cu), for
+one cascade with uniform steps and for the multi-cascade scenes with
+exponential steps (scale > 0.5).
 
 The dt-chain has a closed form, so the k-th marching position of a ray is a
 function of (t_start, k) alone; a round evaluates the chain for all (ray, k)
@@ -24,7 +26,15 @@ The train marches, and the test round as the train rounds call it (with
 cell edge flips an occupancy bit and shifts every later slot.  XLA fuses
 `t0 + k * dt_min` and `o + t * d` into fused multiply-adds (one rounding);
 `_fma` reproduces that on both devices in float64, where these products and
-sums are exact, and rounds once to float32.
+sums are exact, and rounds once to float32.  Under exponential steps the
+chain also takes an `exp` and a `log`, and the cascade picks a `log2`:
+each goes through float64 and is rounded once to float32 (`_exp`, `_log`,
+`_floor_log2`), so it is correctly rounded and the same on the card and
+on the CPU.  torch's float32 exp on the card and on the CPU differ by an
+ulp on some arguments, which moves a geometric step, and at a cell edge
+the march, between the two (`benchmarking/exp_chain_probe.py`).  XLA's
+CPU exp is not correctly rounded either: against the JAX package a
+position may differ by an ulp, and a bit only at a cell edge.
 """
 from __future__ import annotations
 
@@ -54,27 +64,46 @@ def calc_dt(t, exp_step_factor, max_samples, grid_size, scale):
     return torch.clamp(t * exp_step_factor, dt_min, dt_max)
 
 
-def chain_t(t0, k, exp_step_factor, dt_min, dt_max):
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp, correctly rounded on either device (through float64)."""
+    return torch.exp(x.double()).float()
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """float32 log, correctly rounded on either device (through float64)."""
+    return torch.log(x.double()).float()
+
+
+def _floor_log2(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) of float32 x > 0, from the correctly rounded float32
+    log2 (through float64), the same on either device."""
+    return torch.floor(torch.log2(x.double()).float()).to(torch.int64)
+
+
+def chain_t(t0, k, exp_step_factor, dt_min, dt_max, fused=False):
     """Closed-form t_k of the dt-chain starting at t0 (broadcasting t0 and
-    the float step indices k)."""
+    the float step indices k; ray_march.py:65-91).  Uniform steps take
+    one rounding with `fused` (XLA's fused multiply-add) and two without;
+    the exponential branch's linear phases are always fused, as XLA fuses
+    them, and its powers go through `_exp`."""
     if exp_step_factor == 0.0:
-        return t0 + k * dt_min
+        return _fma(k, _f32(dt_min), t0) if fused else t0 + k * dt_min
     f = exp_step_factor
     log1pf = math.log1p(f)
     t_a = dt_min / f   # below: dt = dt_min
     t_b = dt_max / f   # above: dt = dt_max
     n1 = torch.ceil(torch.clamp_min(t_a - t0, 0.0) / f32_const(dt_min, t0))
-    t1 = t0 + n1 * dt_min
+    t1 = _fma(n1, _f32(dt_min), t0)
     n2 = torch.ceil(
-        torch.clamp_min(torch.log(f32_const(max(t_b, 1e-30), t0)
-                                  / torch.clamp_min(t1, 1e-30)), 0.0)
+        torch.clamp_min(_log(f32_const(max(t_b, 1e-30), t0)
+                             / torch.clamp_min(t1, 1e-30)), 0.0)
         / f32_const(log1pf, t0))
-    t2 = t1 * torch.exp(n2 * log1pf)
+    t2 = t1 * _exp(n2 * log1pf)
     in1 = k < n1
     in2 = k < n1 + n2
-    t_lin1 = t0 + k * dt_min
-    t_geo = t1 * torch.exp((k - n1) * log1pf)
-    t_lin2 = t2 + (k - n1 - n2) * dt_max
+    t_lin1 = _fma(k, _f32(dt_min), t0)
+    t_geo = t1 * _exp((k - n1) * log1pf)
+    t_lin2 = _fma(k - n1 - n2, _f32(dt_max), t2)
     return torch.where(in1, t_lin1, torch.where(in2, t_geo, t_lin2))
 
 
@@ -84,14 +113,58 @@ def cell_coords(xyz, scale, grid_size):
     return torch.clamp(u, 0.0, grid_size - 1.0).to(torch.int64)
 
 
-def occupancy_at(occ_grid, xyz, cascades, scale, grid_size):
-    """Per-sample occupancy lookup on the uint8 (C, G, G, G) grid."""
-    if cascades != 1:
-        raise NotImplementedError(
-            "multi-cascade scenes (scale > 0.5) are a later slice")
-    n = cell_coords(xyz, scale, grid_size)
-    flat = (n[..., 0] * grid_size + n[..., 1]) * grid_size + n[..., 2]
+def mip_from_pos(xyz, cascades):
+    """Cascade of a position by its magnitude (ray_march.py:94-101,
+    raymarching.cu:19-23): |x| in [0, .5) -> 0, [.5, 1) -> 1, [1, 2) -> 2,
+    ..."""
+    mx = torch.amax(torch.abs(xyz), dim=-1)
+    e = _floor_log2(torch.clamp_min(mx, 1e-10)) + 2
+    return torch.clamp(e, 0, cascades - 1)
+
+
+def mip_from_dt(dt, grid_size, cascades):
+    """Cascade of a step size (ray_march.py:104-107, raymarching.cu:28-32)."""
+    e = _floor_log2(torch.clamp_min(dt * grid_size, 1e-10)) + 1
+    return torch.clamp(e, 0, cascades - 1)
+
+
+def _mip_bound(mip, scale):
+    """Half-width of cascade `mip`'s box: min(2^(mip - 1), scale)."""
+    return torch.clamp_max(torch.exp2(mip.to(torch.float32) - 1.0), scale)
+
+
+def grid_coords(xyz, dt, cascades, scale, grid_size):
+    """(mip, n): the cascade and int64 cell of each position
+    (ray_march.py:110-126): the larger of the position's and the step's
+    cascade, one cascade at scale <= 0.5."""
+    if cascades == 1:
+        return (torch.zeros(xyz.shape[:-1], dtype=torch.int64,
+                            device=xyz.device),
+                cell_coords(xyz, scale, grid_size))
+    mip = torch.maximum(mip_from_pos(xyz, cascades),
+                        mip_from_dt(dt, grid_size, cascades))
+    u = (xyz / _mip_bound(mip, scale)[..., None] + 1.0) * 0.5 * grid_size
+    return mip, torch.clamp(u, 0.0, grid_size - 1.0).to(torch.int64)
+
+
+def occupancy_at(occ_grid, xyz, dt, cascades, scale, grid_size):
+    """Per-sample occupancy lookup on the uint8 (C, G, G, G) grid at the
+    cascade that position and step size pick (ray_march.py:129-138)."""
+    mip, n = grid_coords(xyz, dt, cascades, scale, grid_size)
+    flat = (((mip * grid_size + n[..., 0]) * grid_size + n[..., 1])
+            * grid_size + n[..., 2])
     return occ_grid.reshape(-1)[flat] > 0
+
+
+def occupancy_at_lines(occ_rows, mip, n, grid_size):
+    """Occupancy from the bit-packed z-lines of `occupancy_lines` at cells
+    (mip, n) of any cascade (ray_march.py:158-172): bit nz % 32 of word
+    nz // 32 of line (mip G + nx) G + ny."""
+    G = grid_size
+    line = (mip * G + n[..., 0]) * G + n[..., 1]
+    nz = n[..., 2]
+    word = occ_rows[line, nz >> 5].to(torch.int64)
+    return ((word >> (nz & 31)) & 1) > 0
 
 
 def march_rays_test_round(rays_o, rays_d, t_start, t_end, occ_grid, *,
@@ -105,41 +178,50 @@ def march_rays_test_round(rays_o, rays_d, t_start, t_end, occ_grid, *,
     sample, else the chain position after the last examined step.  Slots
     past n_eff hold finite placeholder positions and are not valid.
 
-    With `win_rows` (single cascade, uniform steps, chain a multiple of 8;
-    the train rounds) the bits come from `_occ_window_chain` and every
-    chain position is one fused multiply-add, as in the JAX package's
-    windowed branch (ngp_pl_tpu/ops/ray_march.py:213-227), so valid, n_eff
-    and t_next are its bits; `occ_grid` is then unused."""
+    The JAX package's dispatch (ngp_pl_tpu/ops/ray_march.py:213-240):
+    with `win_rows` and a single cascade, uniform steps and a chain that
+    is a multiple of 8 (the train rounds) the bits come from
+    `_occ_window_chain` and every chain position is one fused
+    multiply-add, so valid, n_eff and t_next are its bits; with `win_rows`
+    under multi-cascade or exponential steps and a chain that is a
+    multiple of 4, from the two-window chain `_occ_window_chain_mc`
+    (conservative where a step leaves its windows); otherwise from the
+    grid `occ_grid` at each step's cascade."""
     K, S = chain_length, n_samples
     dt_min = SQRT3 / max_samples
     dt_max = SQRT3 * 2.0 * scale / grid_size
     dev = rays_o.device
+    use_window = (win_rows is not None and exp_step_factor == 0.0
+                  and cascades == 1 and K % SEGMENT_J == 0)
+    use_window_mc = (win_rows is not None and not use_window
+                     and (cascades > 1 or exp_step_factor > 0.0)
+                     and K % J_MC == 0)
 
-    if win_rows is not None:
-        if cascades != 1 or exp_step_factor != 0.0 or K % SEGMENT_J:
-            raise NotImplementedError(
-                "the windowed round covers single-cascade, uniform-step "
-                "scenes with a chain that is a multiple of 8")
-
-        def chain(t0, k):
-            return _fma(k, _f32(dt_min), t0)
-    else:
-        def chain(t0, k):
-            return chain_t(t0, k, exp_step_factor, dt_min, dt_max)
+    def chain(t0, k):
+        return chain_t(t0, k, exp_step_factor, dt_min, dt_max,
+                       fused=use_window)
 
     k = torch.arange(K + 1, dtype=torch.float32, device=dev)[None, :]
     ts_all = chain(t_start[:, None], k)
     ts = ts_all[:, :K]
     in_range = (ts < t_end[:, None]) & (t_start[:, None] >= 0)
-    if win_rows is not None:
+    if use_window:
         occ, _ = _occ_window_chain(rays_o, rays_d, t_start, K // SEGMENT_J,
                                    win_rows, scale=scale,
                                    grid_size=grid_size, dt_min=dt_min)
         occ = occ.reshape(-1, K) & in_range
+    elif use_window_mc:
+        occ, _, _ = _occ_window_chain_mc(
+            rays_o, rays_d, t_start, K // J_MC, win_rows,
+            cascades=cascades, scale=scale, grid_size=grid_size,
+            exp_step_factor=exp_step_factor, dt_min=dt_min, dt_max=dt_max)
+        occ = occ & in_range
     else:
-        xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
-        occ = occupancy_at(occ_grid, xyz, cascades, scale, grid_size) \
-            & in_range
+        dts = torch.clamp(ts * exp_step_factor, dt_min, dt_max)
+        xyz = (_positions(ts, rays_o, rays_d) if exp_step_factor > 0.0
+               else rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :])
+        occ = occupancy_at(occ_grid, xyz, dts, cascades, scale,
+                           grid_size) & in_range
 
     # first-S selection: the (s+1)-th occupied step is the first index
     # where the running count reaches s+1
@@ -336,6 +418,15 @@ def segment_march_dmax_ok(directions, grid_size: int = 128,
     return (SEGMENT_J - 1) / 2 * dt_min * dmax < cell
 
 
+def _positions(t, rays_o, rays_d):
+    """(..., 3) positions o + t * d of chain positions t (N, ...), fused
+    like XLA."""
+    shape = (-1,) + (1,) * (t.dim() - 1)
+    return torch.stack([_fma(t, rays_d[:, a].reshape(shape),
+                             rays_o[:, a].reshape(shape))
+                        for a in range(3)], dim=-1)
+
+
 def _cells(t, rays_o, rays_d, scale, grid_size):
     """Per-axis int32 cells of the positions o + t * d (fused like XLA)."""
     out = []
@@ -373,6 +464,81 @@ def _occ_window_chain(rays_o, rays_d, t0, KA, win_rows, *, scale, grid_size,
     return ((word >> (bit & 31)) & 1) > 0, ts
 
 
+J_MC = 4        # chain steps per interval of the multi-cascade windows
+
+
+def _occ_window_chain_mc(rays_o, rays_d, t0, KA, win_rows, *, cascades,
+                         scale, grid_size, exp_step_factor, dt_min, dt_max):
+    """Occupancy bits, positions and step sizes (each (N, KA*J)) of KA*J
+    chain steps from t0 under multi-cascade / exponential steps, two
+    windows per 4-step interval (ray_march.py:597-681).
+
+    Each step's cascade is the larger of its position's and its step
+    size's.  Per interval one window is gathered at the interval's lowest
+    cascade and one at its highest, each anchored at the 4^3 brick of the
+    interval midpoint in that cascade's cells; a step reads its bit from
+    the window of its own cascade.  A step whose cascade lies strictly
+    between the two, or whose cell falls outside the gathered window,
+    counts as occupied: a conservative extra sample, never a missed one.
+    These fallbacks are the JAX package's, bit for bit."""
+    N = rays_o.shape[0]
+    J = J_MC
+    G = grid_size
+    NW = G // WIN_B
+    f = exp_step_factor
+    dev = rays_o.device
+    kk = torch.arange(KA * J, dtype=torch.float32, device=dev)[None, :]
+    ts = chain_t(t0[:, None], kk, f, dt_min, dt_max,
+                 fused=True).reshape(N, KA, J)
+    dts = torch.clamp(ts * f, dt_min, dt_max)
+    xyz = _positions(ts, rays_o, rays_d)                     # (N, KA, J, 3)
+    mip = torch.maximum(mip_from_pos(xyz, cascades),
+                        mip_from_dt(dts, G, cascades))       # (N, KA, J)
+    mip_lo = mip.amin(dim=2)
+    mip_hi = mip.amax(dim=2)
+    k_mid = (torch.arange(KA, dtype=torch.float32, device=dev) * J
+             + 0.5 * (J - 1))[None, :]
+    t_mid = chain_t(t0[:, None], k_mid, f, dt_min, dt_max, fused=True)
+    xyz_mid = _positions(t_mid, rays_o, rays_d)              # (N, KA, 3)
+    words = win_rows.reshape(-1)
+
+    def bits_at(m_sel):
+        bound = _mip_bound(m_sel, scale)                     # (N, KA)
+        u_mid = (xyz_mid / bound[..., None] + 1.0) * 0.5 * G
+        w = torch.clamp(u_mid, 0.0, G - 1.0).to(torch.int64) >> 2
+        widx = ((m_sel * NW + w[..., 0]) * NW + w[..., 1]) * NW + w[..., 2]
+        u = (xyz / bound[..., None, None] + 1.0) * 0.5 * G
+        n = torch.clamp(u, 0.0, G - 1.0).to(torch.int64)     # (N, KA, J, 3)
+        local = n - ((w[:, :, None, :] << 2) - WIN_APRON)
+        inwin = ((local >= 0) & (local < WIN_P)).all(dim=-1)
+        lc = torch.clamp(local, 0, WIN_P - 1)
+        bit = (lc[..., 0] * WIN_P + lc[..., 1]) * WIN_P + lc[..., 2]
+        word = words[widx[:, :, None] * WIN_WORDS + (bit >> 5)].to(
+            torch.int64)
+        got = ((word >> (bit & 31)) & 1) > 0
+        return torch.where(inwin, got, True)
+
+    occ = torch.where(mip == mip_lo[..., None], bits_at(mip_lo),
+                      torch.where(mip == mip_hi[..., None], bits_at(mip_hi),
+                                  True))
+    return (occ.reshape(N, KA * J), ts.reshape(N, KA * J),
+            dts.reshape(N, KA * J))
+
+
+def window_march_mc_ok(directions, exp_step_factor: float,
+                       cascades: int) -> bool:
+    """Whether the multi-cascade windowed march applies
+    (ray_march.py:684-700): not for single-cascade uniform steps (the
+    8-step windows do), nor for exp factors above 1/64 or directions
+    longer than 2, where the conservative fallbacks would be everywhere."""
+    if cascades <= 1 and exp_step_factor == 0.0:
+        return False
+    if exp_step_factor > 1.0 / 64.0:
+        return False
+    d = np.asarray(directions)
+    return float(np.sqrt((d * d).sum(axis=-1)).max()) <= 2.0
+
+
 def qtile(per_ray_need: torch.Tensor, q: float) -> torch.Tensor:
     """q-th percentile of a per-ray integer demand vector
     (ray_march.py:1132-1141)."""
@@ -385,7 +551,8 @@ def q99(per_ray_need: torch.Tensor) -> torch.Tensor:
     return qtile(per_ray_need, 0.99)
 
 
-def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
+def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min,
+                     exp_step_factor=0.0, dt_max=0.0):
     """Compaction of the occupied candidates (N, K) into a flat pool of
     `pool_size` slots ordered by (ray, t) (ray_march.py:741-863).
 
@@ -403,7 +570,12 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
     (ray_march.py:724-738, 845-850); kb[3] is the chain step of lane 24 of
     the group, zero padding when GRP < 32 (ray_march.py:800-850).  So those slots repeat one position.
     That is a defect of the reference; the port reproduces it so that both
-    give the same pool, loss and gradients (ROADMAP, reference defects)."""
+    give the same pool, loss and gradients (ROADMAP, reference defects).
+
+    A slot's position is the chain's at its step from its ray's t0, the
+    same expression as the candidates' (`chain_t`, fused), and its delta
+    the step size there: dt_min under uniform steps, clamp(t f, dt_min,
+    dt_max) under exponential ones (ray_march.py:853-858)."""
     N, K = occ.shape
     if K <= max_samples:
         rm_counts = occ.sum(dim=1, dtype=torch.int32)
@@ -442,9 +614,13 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min):
     src = torch.where(valid, src, 0)
     ray = src // K
     k = (src % K).to(torch.float32)
-    ts = torch.where(valid, _fma(k, _f32(dt_min), t0[ray]), 0.0)
+    f = exp_step_factor
+    ts = torch.where(valid, chain_t(t0[ray], k, f, dt_min, dt_max,
+                                    fused=True), 0.0)
     ray_idx = torch.where(valid, ray, N)
-    deltas = torch.full((P,), dt_min, dtype=torch.float32, device=occ.device)
+    deltas = (torch.clamp(ts * f, dt_min, dt_max) if f > 0.0 else
+              torch.full((P,), dt_min, dtype=torch.float32,
+                         device=occ.device))
     in_pool = torch.minimum(torch.clamp_min(total - offsets, 0), rm_counts)
     return ts, deltas, ray_idx, valid, in_pool, offsets, total, rm_counts
 
@@ -497,28 +673,30 @@ class StridedMarch(NamedTuple):
 
 def march_rays_train_strided(rays_o, rays_d, hits_t, noise, win_rows, *,
                              scale: float, grid_size: int, max_samples: int,
-                             n_samples: int,
-                             chain_length: int) -> StridedMarch:
-    """Windowed occupancy march of a train batch into the strided (N, S)
-    layout (ngp_pl_tpu/ops/ray_march.py:1040-1131, its single-cascade,
-    uniform-step window branch): the chain of `march_rays_train_window`,
-    rounded up to 32 steps, and per ray the first S occupied steps, found
-    by a cumsum and a sorted search where the TPU counts bits in groups.
-    Valid under `segment_march_dmax_ok`."""
+                             n_samples: int, chain_length: int,
+                             cascades: int = 1, exp_step_factor: float = 0.0,
+                             occ_grid=None) -> StridedMarch:
+    """Occupancy march of a train batch into the strided (N, S) layout
+    (ngp_pl_tpu/ops/ray_march.py:1040-1129): the chain from
+    t1 + calc_dt(t1) * noise, rounded up to 32 steps, its bits by the JAX
+    package's dispatch (`_chain_bits`: the 8-step windows, the
+    multi-cascade windows, or the grid), and per ray the first S occupied
+    steps, found by a cumsum and a sorted search where the TPU counts bits
+    in groups.  Deltas are the step sizes at the kept positions; slots past
+    a ray's count hold t = 0 and are not valid."""
     N = rays_o.shape[0]
     S = n_samples
     K = -(-chain_length // 32) * 32
     dt_min = SQRT3 / max_samples
-    t1, t2 = hits_t[:, 0], hits_t[:, 1]
-    hit = t1 >= 0
-    t0 = _fma(noise, _f32(dt_min), t1)
-    occ, ts_all = _occ_window_chain(rays_o, rays_d, t0, K // SEGMENT_J,
-                                    win_rows, scale=scale,
-                                    grid_size=grid_size, dt_min=dt_min)
-    ts_all = ts_all.reshape(N, K)
-    occ = occ.reshape(N, K) & hit[:, None] & (ts_all >= 0) & (
-        ts_all < t2[:, None])
-    del ts_all
+    dt_max = SQRT3 * 2.0 * scale / grid_size
+    f = exp_step_factor
+    t1 = hits_t[:, 0]
+    t0 = _fma(noise, calc_dt(t1, f, max_samples, grid_size, scale), t1)
+    occ = _chain_bits(rays_o, rays_d, t0, t1 >= 0, hits_t[:, 1], K,
+                      win_rows=win_rows, occ_grid=occ_grid,
+                      cascades=cascades, scale=scale, exp_step_factor=f,
+                      grid_size=grid_size, dt_min=dt_min, dt_max=dt_max,
+                      uniform_window=True)
 
     kk1 = torch.arange(1, K + 1, dtype=torch.int32, device=occ.device)
     per_ray_need = torch.where(occ, kk1, 0).amax(dim=1)
@@ -529,12 +707,98 @@ def march_rays_train_strided(rays_o, rays_d, hits_t, noise, win_rows, *,
     k_idx = torch.searchsorted(
         csum, (s_row + 1).expand(N, S).contiguous())            # K if none
     valid = s_row[None, :] < counts[:, None]
-    ts = torch.where(valid, _fma(k_idx.to(torch.float32), _f32(dt_min),
-                                 t0[:, None]), 0.0)
-    deltas = torch.full((N, S), dt_min, dtype=torch.float32,
-                        device=occ.device)
-    return StridedMarch(ts=ts, deltas=deltas, valid=valid, counts=counts,
-                        rm_counts=rm_counts,
+    ts = chain_t(t0[:, None], k_idx.to(torch.float32), f, dt_min, dt_max,
+                 fused=True)
+    deltas = (torch.clamp(ts * f, dt_min, dt_max) if f > 0.0 else
+              torch.full((N, S), dt_min, dtype=torch.float32,
+                         device=occ.device))
+    return StridedMarch(ts=torch.where(valid, ts, 0.0), deltas=deltas,
+                        valid=valid, counts=counts, rm_counts=rm_counts,
                         total=counts.sum(dtype=torch.int32),
                         chain_demand=per_ray_need.max(),
+                        chain_demand_q=q99(per_ray_need))
+
+
+def _chain_bits(rays_o, rays_d, t0, hit, t2, K, *, win_rows, occ_grid,
+                cascades, scale, exp_step_factor, grid_size, dt_min, dt_max,
+                uniform_window):
+    """(N, K) occupancy of the chain steps from t0 that lie in [0, t2) of
+    a ray that hits the box (`hit`), by the JAX package's dispatch
+    (ray_march.py:926-946, 1077-1105): with `win_rows`, the 8-step windows
+    for one cascade and uniform steps (where `uniform_window` allows them,
+    as the strided march does) or the two-window chain for multi-cascade
+    or exponential steps (K a multiple of 4); otherwise each step's cell
+    of the grid `occ_grid` at its cascade."""
+    N = rays_o.shape[0]
+    f = exp_step_factor
+    use_window = (uniform_window and win_rows is not None and f == 0.0
+                  and cascades == 1 and K % SEGMENT_J == 0)
+    use_window_mc = (win_rows is not None and not use_window
+                     and (cascades > 1 or f > 0.0) and K % J_MC == 0)
+    if use_window:
+        occ, ts = _occ_window_chain(rays_o, rays_d, t0, K // SEGMENT_J,
+                                    win_rows, scale=scale,
+                                    grid_size=grid_size, dt_min=dt_min)
+        occ, ts = occ.reshape(N, K), ts.reshape(N, K)
+    elif use_window_mc:
+        occ, ts, _ = _occ_window_chain_mc(
+            rays_o, rays_d, t0, K // J_MC, win_rows, cascades=cascades,
+            scale=scale, grid_size=grid_size, exp_step_factor=f,
+            dt_min=dt_min, dt_max=dt_max)
+    else:
+        k = torch.arange(K, dtype=torch.float32, device=rays_o.device)
+        ts = chain_t(t0[:, None], k[None, :], f, dt_min, dt_max, fused=True)
+        occ = occupancy_at(occ_grid, _positions(ts, rays_o, rays_d),
+                           torch.clamp(ts * f, dt_min, dt_max), cascades,
+                           scale, grid_size)
+    return occ & hit[:, None] & (ts >= 0) & (ts < t2[:, None])
+
+
+def march_rays_train(rays_o, rays_d, hits_t, occ_grid, noise, *,
+                     cascades: int, scale: float, exp_step_factor: float,
+                     grid_size: int, max_samples: int, pool_size: int,
+                     chain_length: int = 0, skip_empty_span: bool = True,
+                     win_rows=None, span_grid=None) -> MarchResults:
+    """The general train march into the CSR pool
+    (ngp_pl_tpu/ops/ray_march.py:873-973), for what the 8-step windowed
+    march does not cover:
+    - multi-cascade or exponential steps with `win_rows`: the two-window
+      chain (`_occ_window_chain_mc`);
+    - multi-cascade or exponential steps without: each step's cell of
+      `occ_grid` at its cascade (the JAX package's z-line branch);
+    - one cascade with uniform steps, cameras past `segment_march_dmax_ok`:
+      the occupied-span pre-pass (`span_grid`, built from `occ_grid` when
+      not given) cuts each chain to [t_s, t_e], then the grid lookup.
+    The chain runs from t1 + calc_dt(t1) * noise for K = `chain_length`
+    (max_samples by default) steps.  `chain_demand` is the span's step
+    count when the pre-pass ran, else one past the last occupied step."""
+    N = rays_o.shape[0]
+    K = chain_length if chain_length > 0 else max_samples
+    dt_min = SQRT3 / max_samples
+    dt_max = SQRT3 * 2.0 * scale / grid_size
+    f = exp_step_factor
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    hit = t1 >= 0
+    chain_demand = None
+    if skip_empty_span and cascades == 1 and f == 0.0:
+        if span_grid is None:
+            span_grid = occupied_span_prep(occ_grid, grid_size=grid_size)
+        t1, t2, span_steps = occupied_span(rays_o, rays_d, t1, t2, span_grid,
+                                           scale=scale, dt_min=dt_min)
+        chain_demand = span_steps.max()
+    t0 = _fma(noise, calc_dt(t1, f, max_samples, grid_size, scale), t1)
+    occ = _chain_bits(rays_o, rays_d, t0, hit, t2, K, win_rows=win_rows,
+                      occ_grid=occ_grid, cascades=cascades, scale=scale,
+                      exp_step_factor=f, grid_size=grid_size, dt_min=dt_min,
+                      dt_max=dt_max, uniform_window=False)
+
+    kk1 = torch.arange(1, K + 1, dtype=torch.int32, device=occ.device)
+    per_ray_need = torch.where(occ, kk1, 0).amax(dim=1)
+    pool = _compact_to_pool(occ, t0, max_samples, pool_size, dt_min, f,
+                            dt_max)
+    return MarchResults(*pool[:4], counts=pool[4], offsets=pool[5],
+                        total=pool[6], rm_counts=pool[7],
+                        chain_demand=(per_ray_need.max()
+                                      if chain_demand is None
+                                      else chain_demand),
                         chain_demand_q=q99(per_ray_need))

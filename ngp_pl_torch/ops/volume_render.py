@@ -23,8 +23,17 @@ _EXCL_MAX = 88.0
 def segment_excl_cumsum(x, offsets, ray_idx):
     """Exclusive cumsum within the contiguous segments of a flat pool
     (volume_render.py:46-58).  x (P,) is 0 in invalid slots; offsets (N,)
-    are segment starts; ray_idx (P,) the owning segment (N when unused)."""
-    c = torch.cumsum(x, dim=0)
+    are segment starts; ray_idx (P,) the owning segment (N when unused).
+
+    The global prefix is accumulated in float64 and rounded to float32 on
+    either device, which is what PyTorch's CPU cumsum does for float32
+    (bit for bit).  CUDA's float32 cumsum accumulates in float32: a trained
+    field's batch sums its optical depths to ~1.8e5 over the pool, so an
+    f32 running sum misses a sample's local depth, a difference of two
+    prefixes, by up to 0.15 where the double-accumulated prefix misses it
+    by 0.03, and on the card training from a fitted state went to twice
+    the CPU's loss on the same batches (ROADMAP, PR 11)."""
+    c = torch.cumsum(x, dim=0, dtype=torch.float64).to(x.dtype)
     excl = c - x
     # index_select, not x[idx]: its backward is an index_add_, where
     # advanced indexing's sorts the indices on CUDA

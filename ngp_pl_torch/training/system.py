@@ -17,8 +17,13 @@ Validation scores the test views and writes them as PNGs with their
 turbo-coloured depth; `save` and `load` write and read full checkpoints
 (params, Adam state, grid state and step) in the JAX package's keys.
 
-Every march is the windowed single-cascade one; scenes that need the
-multi-cascade march and random backgrounds raise NotImplementedError.
+The march is the JAX package's choice (system.py:227-245): the 8-step
+windows for one cascade with uniform steps where `segment_march_dmax_ok`
+holds, the two-window chain where `window_march_mc_ok` holds (multi-cascade
+/ exponential steps), otherwise the general march on the grid.  The train
+background is white under uniform steps (whatever `random_bg` says), else
+one uniform draw per step from the system's generator with `random_bg`,
+else black (train_step.py:121-128).
 """
 from __future__ import annotations
 
@@ -44,7 +49,11 @@ from ngp_pl_torch.models.rendering import (
     RoundRenderer,
     compute_scene_chain_length,
 )
-from ngp_pl_torch.ops.ray_march import occupancy_windows, segment_march_dmax_ok
+from ngp_pl_torch.ops.ray_march import (
+    occupancy_windows,
+    segment_march_dmax_ok,
+    window_march_mc_ok,
+)
 from ngp_pl_torch.training.checkpoint import (
     grid_state_from_numpy,
     grid_state_numpy,
@@ -75,11 +84,6 @@ class NeRFSystem:
         if tcfg.train_layout not in LAYOUTS:
             raise ValueError(f"train_layout={tcfg.train_layout!r}: one of "
                              f"{LAYOUTS}")
-        if tcfg.random_bg:
-            raise NotImplementedError(
-                "random_bg applies to exp-stepping scenes (scale > 0.5), a "
-                "later slice; the port's uniform-step scenes train on white, "
-                "as the JAX trainer's do")
         self.dev = resolve_device(device)
         self.tcfg = tcfg
         self.cfg: NGPConfig = tcfg.ngp_config()
@@ -90,16 +94,8 @@ class NeRFSystem:
         self.test_dataset = test_dataset or ds_cls(
             split="test", downsample=tcfg.downsample, device=self.dev)
 
-        if not (self.cfg.cascades == 1 and self.cfg.exp_step_factor == 0.0
-                and segment_march_dmax_ok(
-                    self.train_dataset.directions,
-                    grid_size=self.cfg.grid_size,
-                    max_samples=self.rcfg.max_samples,
-                    scale=self.cfg.scale)):
-            raise NotImplementedError(
-                "the port's train march is the single-cascade windowed march; "
-                "multi-cascade / exp-stepping scenes and wide-angle cameras "
-                "are a later slice")
+        self.window_march = self._window_ok(self.train_dataset)
+        self.test_window = self._window_ok(self.test_dataset)
 
         self.ngp = NGP(self.cfg, seed=tcfg.seed, device=self.dev)
         self.grid_state = init_grid_state(self.cfg, self.dev)
@@ -122,8 +118,6 @@ class NeRFSystem:
         # threshold 0.01 * MAX_SAMPLES / sqrt(3) (reference train.py:160)
         self.density_threshold = 0.01 * MAX_SAMPLES / math.sqrt(3.0)
         self.erode = tcfg.dataset_name == "colmap"
-        # white, as the JAX trainer's uniform-step scenes (train_step.py:123)
-        self.bg = torch.ones(3, device=self.dev)
         self.generator = torch.Generator(device=self.dev).manual_seed(
             tcfg.seed)
         self.history: list = []
@@ -131,6 +125,9 @@ class NeRFSystem:
 
         # demand controller (system.py:164-250)
         self._pool_buckets = (8, 16, 24, 32, 40, 48, 56, 64)
+        if self.cfg.exp_step_factor > 0:
+            # exp-stepping scenes carry 2-3x the occupied samples per ray
+            self._pool_buckets += (96, 128, 160)
         self._pool_mult = self.rcfg.train_pool_mult
         self._pool_demand = 0.0
         # "auto" starts in CSR: every chain step is occupied in warmup
@@ -143,7 +140,8 @@ class NeRFSystem:
         self.layout_log = [(0, self.layout)]
         self.chain_full = compute_scene_chain_length(
             self.train_dataset.poses, self.train_dataset.directions,
-            self.cfg.scale, self.rcfg.max_samples)
+            self.cfg.scale, self.cfg.exp_step_factor, self.rcfg.max_samples,
+            self.cfg.grid_size)
         self._chain_buckets = sorted({
             max(128, -(-int(self.chain_full * f) // 128) * 128)
             for f in (0.25, 0.5, 0.75, 1.0)})
@@ -155,6 +153,28 @@ class NeRFSystem:
         self._pending_demand = None
         # True pins layout, budget and chain at their current values
         self.freeze_buckets = False
+
+    def _window_ok(self, ds) -> bool:
+        """The JAX package's window rule for a dataset's cameras."""
+        cfg = self.cfg
+        return (cfg.cascades == 1 and cfg.exp_step_factor == 0.0
+                and segment_march_dmax_ok(
+                    ds.directions, grid_size=cfg.grid_size,
+                    max_samples=self.rcfg.max_samples, scale=cfg.scale)
+                ) or window_march_mc_ok(ds.directions, cfg.exp_step_factor,
+                                        cfg.cascades)
+
+    def renderer(self) -> RoundRenderer:
+        """The test-view renderer, windows as the JAX system sets them."""
+        return RoundRenderer(self.ngp, self.rcfg, use_window=self.test_window)
+
+    def background(self) -> torch.Tensor:
+        """This step's train background (train_step.py:121-128)."""
+        if self.cfg.exp_step_factor == 0:
+            return torch.ones(3, device=self.dev)
+        if self.tcfg.random_bg:
+            return torch.rand(3, generator=self.generator, device=self.dev)
+        return torch.zeros(3, device=self.dev)
 
     # -- setup ------------------------------------------------------------
     def on_train_start(self):
@@ -180,11 +200,14 @@ class NeRFSystem:
         rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
         noise = torch.rand(tcfg.batch_size, generator=self.generator,
                            device=self.dev)
-        return train_step(self.ngp, self.optimizer, self.grid_state.win_rows,
+        gs = self.grid_state
+        return train_step(self.ngp, self.optimizer,
+                          gs.win_rows if self.window_march else None,
                           rays_o.contiguous(), rays_d.contiguous(), target,
-                          noise, self.bg, tcfg=tcfg, rcfg=self.rcfg,
-                          n_samples=self._pool_mult,
-                          chain_length=self.step_chain(), layout=self.layout)
+                          noise, self.background(), tcfg=tcfg,
+                          rcfg=self.rcfg, n_samples=self._pool_mult,
+                          chain_length=self.step_chain(), layout=self.layout,
+                          occ_grid=gs.occ_grid)
 
     def step_chain(self) -> int:
         """The chain a step marches: per round under rounds
@@ -396,7 +419,7 @@ class NeRFSystem:
             os.makedirs(val_dir, exist_ok=True)
         ds = self.test_dataset
         w, h = ds.img_wh
-        renderer = RoundRenderer(self.ngp, self.rcfg)
+        renderer = self.renderer()
         dirs = torch.from_numpy(ds.directions).to(self.dev)
         n = len(ds.poses)
         if max_images:

@@ -114,25 +114,29 @@ def sample_batch(rays_store: torch.Tensor, batch_size: int, strategy: str,
 
 def train_render(ngp, win_rows, rays_o, rays_d, noise, bg, *,
                  tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
-                 chain_length: int, layout: str = "csr"):
+                 chain_length: int, layout: str = "csr", occ_grid=None):
     """The render of a train step in `layout` and its loss (`loss_fn`,
     train_step.py:131-163): "csr" (`n_samples` is the pool's multiple of
     the batch), "strided" (S, the width of each ray's row) or "rounds" (S
     per round, 16 and a 512-step chain by default).  Returns the render's
-    outputs and a function of the targets that gives the loss."""
+    outputs and a function of the targets that gives the loss.  The march
+    reads `win_rows` where the caller's window rule gives them, else
+    `occ_grid`."""
     if layout == "csr":
         results = render_rays_train_csr(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
-            pool_mult=n_samples or None, chain_length=chain_length)
+            pool_mult=n_samples or None, chain_length=chain_length,
+            occ_grid=occ_grid)
     elif layout == "rounds":
         results = render_rays_train_rounds(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
             n_samples=n_samples or 16, chain_length=chain_length or 512,
-            lambda_distortion=tcfg.distortion_loss_w)
+            lambda_distortion=tcfg.distortion_loss_w, occ_grid=occ_grid)
     elif layout == "strided":
         results = render_rays_train(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
-            n_samples=n_samples or None, chain_length=chain_length)
+            n_samples=n_samples or None, chain_length=chain_length,
+            occ_grid=occ_grid)
     else:
         raise ValueError(f"unknown train layout {layout!r}")
 
@@ -146,7 +150,7 @@ def train_render(ngp, win_rows, rays_o, rays_d, noise, bg, *,
 
 def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
                *, tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
-               chain_length: int, layout: str = "csr"
+               chain_length: int, layout: str = "csr", occ_grid=None
                ) -> Dict[str, torch.Tensor]:
     """One train step (`loss_fn` + `_step_core`, train_step.py:106-265)
     from given rays, targets, march noise (B,) and background (3,), in
@@ -154,7 +158,8 @@ def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
     device metrics, among them the packed demand vector."""
     results, loss_of = train_render(
         ngp, win_rows, rays_o, rays_d, noise, bg, tcfg=tcfg, rcfg=rcfg,
-        n_samples=n_samples, chain_length=chain_length, layout=layout)
+        n_samples=n_samples, chain_length=chain_length, layout=layout,
+        occ_grid=occ_grid)
     loss = loss_of(target)
     grads = torch.autograd.grad(loss, opt.params)
     finite = opt.step(grads)

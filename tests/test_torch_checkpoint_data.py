@@ -144,14 +144,31 @@ def test_params_from_numpy():
                                   params["sigma_mlp"][1])
 
 
-def test_synthetic_dataset_matches():
+@pytest.mark.parametrize("kw", [
+    pytest.param(dict(downsample=0.125), id="downsample"),
+    pytest.param(dict(img_size=128, n_train=32, n_test=2), id="protocol")])
+def test_synthetic_dataset_matches(kw):
+    """Intrinsics, poses and directions equal JAX's, at downsample 1/8 and
+    at the 30k quality protocol's 32 train and 2 test views of 128^2; there
+    the first and last view of each split also render within 1e-4 of
+    JAX's ground truth, as in test_ground_truth_matches (1.34e-5 read)."""
     for split in ("train", "test"):
-        j = JaxSynthetic(split=split, downsample=0.125, read_meta=False)
-        t = SyntheticDataset(split=split, downsample=0.125, device="cpu")
+        j = JaxSynthetic(split=split, read_meta=False, **kw)
+        t = SyntheticDataset(split=split, device="cpu", **kw)
         np.testing.assert_array_equal(t.K, j.K)
         np.testing.assert_array_equal(t.poses, j.poses)
         np.testing.assert_array_equal(t.directions, j.directions)
         assert t.img_wh == j.img_wh
+        if "img_size" not in kw:
+            continue
+        assert len(t.poses) == (32 if split == "train" else 2)
+        for idx in (0, len(t.poses) - 1):
+            pose = j.poses[idx]
+            rd = j.directions @ pose[:, :3].T
+            ro = np.broadcast_to(pose[:, 3], rd.shape)
+            want = jax_render_gt(ro, rd)[0]
+            np.testing.assert_allclose(t.image(idx).numpy(), want, rtol=0,
+                                       atol=1e-4)
 
 
 def test_ground_truth_matches():

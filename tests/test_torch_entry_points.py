@@ -22,7 +22,12 @@ from ngp_pl_tpu.config import TrainConfig as JaxTrainConfig
 from ngp_pl_tpu.config import add_train_args as jax_add_train_args
 from ngp_pl_tpu.training.system import depth2img as jax_depth2img
 from ngp_pl_torch import train as ttrain
-from ngp_pl_torch.benchmarking import bench, full_run, full_run_probe
+from ngp_pl_torch.benchmarking import (
+    bench,
+    bench_mc,
+    full_run,
+    full_run_probe,
+)
 from ngp_pl_torch.config import TrainConfig, add_train_args, config_from_args
 from ngp_pl_torch.datasets.synthetic import SyntheticDataset
 from ngp_pl_torch.models.rendering import RoundRenderer
@@ -222,10 +227,65 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert built[0].freeze_buckets and built[0]._host_step == 64
 
 
-def test_bench_refuses_multi_cascade(monkeypatch):
-    monkeypatch.setenv("BENCH_SCALE", "1.0")
-    with pytest.raises(NotImplementedError, match="multi-cascade"):
-        bench.main(["--device", "cpu"])
+def test_bench_runs_the_multi_cascade_scene(monkeypatch, capsys):
+    """BENCH_SCALE=1.0 at toy size: bench.py's model of that scale (two
+    cascades, steps growing by 1/256) trains on the two-window march and
+    prints its record."""
+    for k, v in (("BENCH_BATCH", "256"), ("BENCH_WARM_STEPS", "32"),
+                 ("BENCH_STEPS", "16"), ("BENCH_SCALE", "1.0")):
+        monkeypatch.setenv(k, v)
+    built = []
+    monkeypatch.setattr(bench, "bench_system", lambda device, batch, scale:
+                        built.append(_small_system(
+                            batch_size=batch, scale=scale,
+                            exp_name="bench")) or built[-1])
+    rec = bench.main(["--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rec
+    system = built[0]
+    assert system.cfg.scale == 1.0 and system.cfg.cascades == 2
+    assert system.cfg.exp_step_factor == 1.0 / 256
+    assert system.window_march and system._pool_buckets[-1] == 160
+    assert rec["value"] > 0 and system._host_step == 64
+    assert system.history == [] and system.optimizer.count == 64
+
+
+def test_bench_mc_prints_and_writes_its_record(tmp_path, monkeypatch,
+                                               capsys):
+    """bench_mc at toy size (scale 4 on the scene scaled by 8, black
+    background, grid 32, L=4): 32 steps, one timed block; the JAX bench's
+    record, printed last and written as bench_mc_window.json."""
+    monkeypatch.setattr(bench_mc, "RECORD_DIR", str(tmp_path))
+    monkeypatch.setattr(bench_mc, "TIMED_STEPS", 16)
+    built = []
+
+    def small(device, steps, scale, img_size):
+        tcfg = SmallTrainConfig(dataset_name="synthetic", batch_size=256,
+                                num_epochs=1, iters_per_epoch=1000,
+                                scale=scale, exp_name="bench_mc",
+                                no_save_test=True)
+        ws = scale / 0.5
+        built.append(NeRFSystem(
+            tcfg, device=device,
+            train_dataset=SyntheticDataset(split="train", img_size=img_size,
+                                           n_train=2, world_scale=ws, bg=0.0,
+                                           device=device),
+            test_dataset=SyntheticDataset(split="test", img_size=img_size,
+                                          n_test=1, world_scale=ws, bg=0.0,
+                                          device=device)))
+        return built[-1]
+
+    monkeypatch.setattr(bench_mc, "bench_mc_system", small)
+    rec = bench_mc.main(["--device", "cpu", "--steps", "32", "--img_size",
+                         "16"])
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == rec
+    with open(tmp_path / "bench_mc_window.json") as f:
+        assert json.load(f) == rec
+    assert rec["tag"] == "mc_window" and rec["cascades"] == 4
+    assert rec["rays_per_s"] > 0 and 0 < rec["psnr"] < 100
+    system = built[0]
+    assert system.window_march and system.freeze_buckets
+    assert system._host_step == 48
+    assert float(system.train_dataset.rays.min()) == 0.0    # black
 
 
 def test_full_run_resumes(tmp_path, monkeypatch, capsys):
@@ -291,6 +351,81 @@ def test_full_run_probe_reads_the_run(monkeypatch, capsys, plain):
     assert (seen[0] is he.hash_encode_fwd_plain) == plain
     assert (he.hash_encode_fwd_cuda, he.hash_encode_bwd_cuda,
             ft.field_tail_cuda, ft.field_tail_bwd_cuda) == wrappers
+
+
+def test_full_run_probe_transfer_state(tmp_path, monkeypatch, capsys):
+    """`--save_at 16` writes the transfer file (table float16, its second
+    moment bfloat16, its first moment left out, the packed grid rows left
+    out); a run `--from_state` it loads, after the marking, the state the
+    file holds: the rounded table and moment, a zero first moment, every
+    other leaf and the grid as saved, the grid rows rebuilt; then it logs
+    every block from step 16 on."""
+    from ngp_pl_torch.training.checkpoint import train_state_numpy
+
+    systems = []
+    monkeypatch.setattr(full_run_probe, "make_system",
+                        lambda tcfg, img_size, n_train, device:
+                        systems.append(_small_system(tcfg.replace(
+                            batch_size=256, n_levels=4,
+                            log2_hashmap_size=12))) or systems[-1])
+    full_run_probe.main(["--device", "cpu", "--steps", "16", "--save_at",
+                         "16", "--save_dir", str(tmp_path),
+                         "--score_every", "16"])
+    path = tmp_path / "state_16.npz"
+    with np.load(path) as f:
+        assert f[full_run_probe.TABLE].dtype == np.float16
+        assert f[full_run_probe.TABLE_NU].dtype == np.uint16
+        assert full_run_probe.TABLE_MU not in f
+        assert "grid.win_rows" not in f and int(f["__step__"]) == 16
+    saved = systems[0]
+    p0, mu0, nu0, count0 = train_state_numpy(saved.ngp, saved.optimizer)
+    capsys.readouterr()
+    full_run_probe.main(["--device", "cpu", "--steps", "32", "--from_state",
+                         str(path), "--log_every", "16", "--score_every",
+                         "32"])
+    recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["step"] for r in recs] == [16, 32]
+    assert "test_psnr" in recs[0] and "loss" in recs[1]
+    fresh = _small_system(systems[1].tcfg)
+    fresh.on_train_start()
+    full_run_probe.load_state(fresh, str(path))
+    p1, mu1, nu1, count1 = train_state_numpy(fresh.ngp, fresh.optimizer)
+    assert count1 == count0 == 16 and fresh._host_step == 16
+    np.testing.assert_array_equal(
+        p1["hash_table"], p0["hash_table"].astype(np.float16).astype(
+            np.float32))
+    np.testing.assert_array_equal(
+        nu1["hash_table"], torch.from_numpy(nu0["hash_table"]).bfloat16()
+        .float().numpy())
+    assert not mu1["hash_table"].any()
+    for name in ("sigma_mlp", "rgb_mlp"):
+        for a, b, c, d in zip(p1[name], p0[name], mu1[name], mu0[name]):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(c, d)
+    for field in ("density_grid", "count_grid", "occ_grid", "win_rows"):
+        assert torch.equal(getattr(fresh.grid_state, field),
+                           getattr(saved.grid_state, field)), field
+
+
+def test_full_run_probe_host_draws_are_the_systems_on_the_cpu(monkeypatch,
+                                                              capsys):
+    """`--host_draws` draws batches, march jitter and refresh jitter from a
+    CPU generator of the seed in the system's order: on the CPU, where the
+    system's own generator is that generator, the run is the same."""
+    monkeypatch.setattr(full_run_probe, "make_system",
+                        lambda tcfg, img_size, n_train, device:
+                        _small_system(tcfg.replace(
+                            batch_size=256, n_levels=4,
+                            log2_hashmap_size=12)))
+    logs = []
+    for extra in ([], ["--host_draws"]):
+        full_run_probe.main(["--device", "cpu", "--steps", "32",
+                             "--log_every", "16", "--score_every", "32"]
+                            + extra)
+        recs = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+        logs.append([{k: v for k, v in r.items() if k != "t"} for r in recs])
+    assert [r["step"] for r in logs[0]] == [16, 32]
+    assert logs[1] == logs[0]
 
 
 def test_full_run_geometries():

@@ -335,8 +335,3 @@ def test_round_renderer_empty_scene():
     assert out_t["rounds"] == out_j["rounds"] == 0
     np.testing.assert_array_equal(out_j["opacity"], 0.0)
 
-
-def test_round_renderer_rejects_multi_cascade():
-    tngp = NGP(NGPConfig(**{**MODEL_KW, "scale": 2.0}), device="cpu")
-    with pytest.raises(NotImplementedError):
-        RoundRenderer(tngp, RenderConfig())

@@ -717,11 +717,36 @@ def test_system_refuses_an_unknown_layout():
         NeRFSystem(TrainConfig(train_layout="dense"), device="cpu")
 
 
-def test_system_refuses_random_bg():
-    """The JAX trainer draws a random background only for exp-stepping
-    scenes, which the port does not train yet."""
-    with pytest.raises(NotImplementedError, match="later"):
-        NeRFSystem(TrainConfig(random_bg=True), device="cpu")
+def test_system_trains_on_white_at_uniform_steps_with_random_bg():
+    """At uniform steps the JAX trainer trains on white whatever
+    `random_bg` says (train_step.py:121-123): so does the port, and it
+    draws nothing from its generator for it."""
+    system = _port_system(random_bg=True)
+    assert system.cfg.exp_step_factor == 0.0
+    state = system.generator.get_state()
+    for _ in range(2):
+        torch.testing.assert_close(system.background(), torch.ones(3),
+                                   rtol=0, atol=0)
+    assert torch.equal(system.generator.get_state(), state)
+
+
+@pytest.mark.parametrize("random_bg", [True, False])
+def test_system_background_under_exp_steps(random_bg):
+    """Under exponential steps (scale 2) the background is one uniform(3)
+    draw per step from the system's generator with `random_bg`
+    (train_step.py:124-125), else black (:126-127)."""
+    system = _port_system(random_bg=random_bg, scale=2.0)
+    assert system.cfg.exp_step_factor == 1.0 / 256
+    want = torch.Generator().manual_seed(system.tcfg.seed)
+    got = [system.background() for _ in range(3)]
+    if random_bg:
+        draws = [torch.rand(3, generator=want) for _ in range(3)]
+        for g, d in zip(got, draws):
+            torch.testing.assert_close(g, d, rtol=0, atol=0)
+        assert not torch.equal(got[0], got[1])
+        assert all(((g >= 0) & (g < 1)).all() for g in got)
+    else:
+        assert all(torch.equal(g, torch.zeros(3)) for g in got)
 
 
 @pytest.mark.parametrize("F", [4, 2])
