@@ -104,6 +104,18 @@ train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
 train_reference_l16f2 from the trained state on 2 batches,
 trained_render_l16f2, a profiled block and K3 and K4 on a train step's
 input.
+Then the flagship's two other heads of training, CSR pinned:
+train_hdr (`--use_exposure`: the HDR head, its tail PyTorch ops as the
+JAX package's XLA tail; the seeded step as train_reference_hdr, once
+more on a batch with an exposure column of 0.25-4 per ray drawn from a
+seed; 256 steps, each block logged; the trained field's 800x800 frame;
+a profiled block; K1 and K2+K5 must launch, K7 and K8 must not) and
+train_pose (`--optimize_ext`: the x-grad encode and the tail as PyTorch
+ops, no hand kernel, as in the JAX package; the seeded step against the
+CPU, dR and dT included; 256 steps with blocks and rays/s; a profiled
+block with the x-grad encode's forward and backward device ms; the peak
+of torch.cuda's allocator; dR and dT norms; K1, K2+K5, K7 and K8 must
+launch 0 times).
 Then the card line, the kernels line (the seven kernels of the paths and
 the six K9 variants, with their launches on each path) and, last, the
 result line.  Without a CUDA device,
@@ -210,6 +222,18 @@ SEEDED_MASKED_CPU_TOL = TRAINED_CPU_TOL
 # the no-kernel witness: the kernels may move the step twice as far as
 # the card's own summation order does without them.
 TRAINED_CPU_TOL_MC = (2e-3, 4e-2)
+# The HDR and pose paths' tail is PyTorch ops that round as the JAX
+# package's jitted `_mlp_apply` (`mlp_apply`): hidden activations and the
+# weights' gradients in bf16.  Another summation order (cuBLAS against the
+# CPU's, K1's against its plain version's) flips a hidden unit's bf16
+# rounding and, through the chain, moves weight-gradient entries by steps
+# of 2^-8 of themselves: the seeded pose step with no hand kernel read
+# 6.4e-3 of the largest rgb_mlp[2] gradient against the CPU (an H100
+# 80GB HBM3 at 700 W; PERF.md), its table, w1, dR and dT gradients
+# 3.9e-5-1.4e-4.
+# Those weight gradients are held to K8's limit against its f32 plain
+# version, the same phenomenon there; the others to the step's limit.
+TAIL_TOL = K8_F32_TOL
 TRAINED_KERNEL_TOL_MC = (2e-3, 4e-2)
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
 TRAINED_BATCHES_L16F2 = (7, 8)
@@ -647,9 +671,12 @@ def _device_kernels(prof):
     out."""
     from torch.autograd import DeviceType
 
+    from ngp_pl_torch.ops.hash_encoding import XGRAD_CALLS
+
     kernels = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a profiler range shows on the device too, spanning its kernels
+        if ev.device_type != DeviceType.CUDA or ev.key in XGRAD_CALLS:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -733,13 +760,17 @@ def _counters():
             **{f"K9/{v}": ea.CUDA[v] for v in ea.VARIANTS}}
 
 
-def path_kernels(cfg):
+def path_kernels(ngp):
     """The hand kernels a train step of this model launches: the encode
-    forward and its table gradient by F, then the field tail and its
-    backward.  A render launches the first and the third."""
-    if cfg.n_features_per_level == 2:
-        return ("K3", "K4", "K7", "K8")
-    return ("K1", "K2+K5", "K7", "K8")
+    forward and its table gradient by F, then, where the fused tail runs
+    (the Sigmoid head), the field tail and its backward; none with the
+    position gradient (`--optimize_ext`), as in the JAX package.  A render
+    launches the first and, with the fused tail, the third."""
+    if ngp.need_x_grad:
+        return ()
+    enc = ("K3", "K4") if ngp.cfg.n_features_per_level == 2 else (
+        "K1", "K2+K5")
+    return enc + (("K7", "K8") if ngp.use_fused else ())
 
 
 def train_fit(torch, system, steps=TRAIN_STEPS):
@@ -789,7 +820,7 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
         raise AssertionError(f"loss did not fall: {first['loss']} -> "
                              f"{last['loss']}")
     if torch.device(dev).type == "cuda" and not all(
-            launches[k] > 0 for k in path_kernels(system.cfg)):
+            launches[k] > 0 for k in path_kernels(system.ngp)):
         raise AssertionError(f"a kernel of the train path did not launch: "
                              f"{launches}")
     tail = [h for h in hist if h["step"] >= steps - 128]
@@ -931,44 +962,72 @@ def _train_step_on(torch, system, model, dev, batch, grid_state=None):
     """Loss, gradients, pool and sample count of one train step of `model`
     on `dev` from the system's grid (or `grid_state`; its windows where
     the system marches with them), layout, budget and chain, on white
-    under uniform steps and on black under exponential ones."""
-    from ngp_pl_torch.training.train_step import train_render
+    under uniform steps and on black under exponential ones.  With the
+    batch's exposure column the HDR head reads it; with pose refinement
+    the rays come through a copy of the system's dR and dT on `dev`, whose
+    gradients follow the parameters'."""
+    from ngp_pl_torch.training.train_step import PoseRefinement, train_render
 
-    rays_o, rays_d, target, noise = batch
+    rays_o, rays_d, target, noise, img, pix, exposure = batch
+    extra = []
+    if system.pose is not None:
+        ds = system.train_dataset
+        pose = PoseRefinement(len(ds.poses), system.tcfg.pose_lr, dev)
+        with torch.no_grad():
+            pose.dR.copy_(system.pose.dR)
+            pose.dT.copy_(system.pose.dT)
+        rays_o, rays_d = pose.rays(
+            torch.from_numpy(ds.directions).to(dev)[pix.to(dev)],
+            torch.from_numpy(ds.poses).to(dev), img.to(dev))
+        extra = [pose.dR, pose.dT]
     gs = grid_state or system.grid_state
     win_rows = gs.win_rows.to(dev) if system.window_march else None
     bg = torch.full((3,), 1.0 if system.cfg.exp_step_factor == 0 else 0.0,
                     device=dev)
     res, loss_of = train_render(
-        model, win_rows, rays_o.to(dev), rays_d.to(dev), noise.to(dev), bg,
+        model, win_rows, rays_o.to(dev).contiguous(),
+        rays_d.to(dev).contiguous(), noise.to(dev), bg,
         tcfg=system.tcfg, rcfg=system.rcfg, n_samples=system._pool_mult,
         chain_length=system.step_chain(), layout=system.layout,
-        occ_grid=gs.occ_grid.to(dev))
+        occ_grid=gs.occ_grid.to(dev),
+        exposure=None if exposure is None else exposure.to(dev),
+        unit_exposure_rgb=system.unit_exposure_rgb)
     loss = loss_of(target.to(dev))
-    grads = torch.autograd.grad(loss, [w for _, _, w in model._slots()])
+    grads = torch.autograd.grad(loss, [w for _, _, w in model._slots()]
+                                + extra)
     return dict(loss=float(loss.detach()), grads=[t.cpu() for t in grads],
                 pool={k: res[k].cpu() for k in STEP_POOL[system.layout]},
                 samples=int(res["rm_samples"]))
 
 
-def _step_err(torch, names, got, ref):
+def _step_err(torch, names, got, ref, stepped=()):
     """Loss error relative to the reference's; per parameter, the largest
     gradient error over its largest gradient, and the error's L2 norm over
-    the gradient's."""
+    the gradient's.  The parameters named in `stepped` have bf16 gradients
+    (the PyTorch tail of the HDR and pose paths rounds them, as the JAX
+    package's jitted `_mlp_apply` does): their largest error is read apart
+    (`tail_grad_rel_err_max`, held to TAIL_TOL) and left out of
+    `grad_rel_err_gate`, the other gradients' largest error."""
     grad = {n: float((a - b).abs().max() / b.abs().max())
             for n, a, b in zip(names, got["grads"], ref["grads"])}
     l2 = {n: float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
           for n, a, b in zip(names, got["grads"], ref["grads"])}
+    tail = [v for n, v in grad.items() if n in stepped]
     return dict(loss_rel_err=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
                 grad_rel_err=grad, grad_rel_err_max=max(grad.values()),
+                grad_rel_err_gate=max(v for n, v in grad.items()
+                                      if n not in stepped),
+                tail_grad_rel_err_max=max(tail, default=0.0),
                 grad_l2_err_max=max(l2.values()),
                 pool_identical=all(torch.equal(got["pool"][k], ref["pool"][k])
                                    for k in ref["pool"]))
 
 
-def explicit_batch(torch, system, seed, n_rays):
-    """(rays_o, rays_d, target, noise) on the host: n_rays pixels of the
-    system's train views and the march noise, drawn from `seed`."""
+def explicit_batch(torch, system, seed, n_rays, exposure=False):
+    """(rays_o, rays_d, target, noise, img, pix, exposure) on the host:
+    n_rays pixels of the system's train views, the march noise and, with
+    `exposure`, an exposure column of 0.25-4 per ray (log-uniform), drawn
+    from `seed`; exposure None otherwise."""
     from ngp_pl_torch.datasets.ray_utils import get_rays
 
     ds = system.train_dataset
@@ -977,14 +1036,18 @@ def explicit_batch(torch, system, seed, n_rays):
     pix = torch.randint(0, ds.directions.shape[0], (n_rays,), generator=g)
     rays_o, rays_d = get_rays(torch.from_numpy(ds.directions)[pix],
                               torch.from_numpy(ds.poses)[img])
+    noise = torch.rand((n_rays,), generator=g)
+    expo = (torch.exp((torch.rand((n_rays, 1), generator=g) * 2.0 - 1.0)
+                      * math.log(4.0)) if exposure else None)
     return (rays_o.contiguous(), rays_d.contiguous(),
-            system.rays[img.to(system.dev), pix.to(system.dev)].cpu(),
-            torch.rand((n_rays,), generator=g))
+            system.rays[img.to(system.dev), pix.to(system.dev)][:, :3].cpu(),
+            noise, img, pix, expo)
 
 
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                     n_rays=2048, alone=(), alone_tol=None,
-                    cpu_floor_by_witness=False, encode_floor_by_witness=False):
+                    cpu_floor_by_witness=False, encode_floor_by_witness=False,
+                    exposure=False):
     """One train step's loss and gradients from the system's state on the
     card (kernels), against the same step on the CPU (plain versions) and
     on the card with every kernel replaced by its plain version; same batch,
@@ -1019,37 +1082,51 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     step against the step with the encode kernel alone
     (`vs_encode_alone_on_card`, identical h1 on both sides), to
     `card_tol` itself (`card_gate`).  No other kernel, and no step, is
-    held to the witness."""
+    held to the witness.
+
+    On the HDR and pose paths the tail's weight gradients are bf16
+    (`_step_err`'s `stepped`), and with pose refinement dR and dT are
+    gradients of the step too; `exposure` gives each batch an exposure
+    column (`explicit_batch`)."""
     from ngp_pl_torch.models.ngp import NGP
 
-    cpu_ngp = NGP(system.cfg, device="cpu")
+    cpu_ngp = NGP(system.cfg, device="cpu",
+                  need_x_grad=system.ngp.need_x_grad)
     cpu_ngp.load_params(system.ngp.params_numpy())
-    names = [f"{n}" if i is None else f"{n}[{i}]"
-             for n, i, _ in system.ngp._slots()]
+    slots = list(system.ngp._slots())
+    names = [f"{n}" if i is None else f"{n}[{i}]" for n, i, _ in slots]
+    stepped = () if system.ngp.use_fused else tuple(
+        name for (n, i, _), name in zip(slots, names)
+        if n != "hash_table" and (n, i) != ("sigma_mlp", 0))
+    if system.pose is not None:
+        names += ["pose.dR", "pose.dT"]
+    step_err = lambda *a: _step_err(*a, stepped=stepped)   # noqa: E731
 
     def within(err, tol):
         return (err["pool_identical"] and err["loss_rel_err"] <= tol[0]
-                and err["grad_rel_err_max"] <= tol[1])
+                and err["grad_rel_err_gate"] <= tol[1]
+                and err["tail_grad_rel_err_max"] <= max(tol[1], TAIL_TOL))
 
     batches, failed = [], False
     for seed in seeds:
-        batch = explicit_batch(torch, system, seed, n_rays)
+        batch = explicit_batch(torch, system, seed, n_rays, exposure)
         ref = _train_step_on(torch, system, cpu_ngp, "cpu", batch)
         card = _train_step_on(torch, system, system.ngp, system.dev, batch)
         with plain_on_card("K7"):
             k7_plain = _train_step_on(torch, system, system.ngp, system.dev,
                                       batch)
-        path = path_kernels(system.cfg)
+        path = path_kernels(system.ngp)
         with plain_on_card(*path):
             plain = _train_step_on(torch, system, system.ngp, system.dev,
                                    batch)
-        vs_cpu = _step_err(torch, names, card, ref)
-        vs_card = _step_err(torch, names, card, plain)
-        brief = ("loss_rel_err", "grad_rel_err_max", "grad_l2_err_max")
-        encode, flips, rest = path[0], None, None
+        vs_cpu = step_err(torch, names, card, ref)
+        vs_card = step_err(torch, names, card, plain)
+        brief = ("loss_rel_err", "grad_rel_err_max", "grad_rel_err_gate",
+                 "tail_grad_rel_err_max", "grad_l2_err_max")
+        encode, flips, rest = (path or (None,))[0], None, None
         if encode_floor_by_witness:
             with h1_flips(torch), plain_on_card(*path):
-                flips = {k: v for k, v in _step_err(
+                flips = {k: v for k, v in step_err(
                     torch, names, _train_step_on(
                         torch, system, system.ngp, system.dev, batch),
                     plain).items() if k in brief}
@@ -1061,23 +1138,23 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
             with plain_on_card(*(k for k in path if k != key)):
                 one = _train_step_on(torch, system, system.ngp, system.dev,
                                      batch)
-            vs_alone[key] = {k: v for k, v in _step_err(
+            vs_alone[key] = {k: v for k, v in step_err(
                 torch, names, one, plain).items() if k in brief + (
                     "pool_identical",)}
             if key in alone:
                 failed |= not within(vs_alone[key], alone_tol)
             if key == encode and flips is not None:
                 failed |= not within(vs_alone[key], encode_tol)
-                rest = _step_err(torch, names, card, one)
+                rest = step_err(torch, names, card, one)
         out = dict(seed=seed, samples=card["samples"],
                    loss_card=card["loss"], loss_cpu=ref["loss"],
                    vs_cpu=vs_cpu, vs_plain_on_card=vs_card,
                    alone_vs_plain_on_card=vs_alone,
                    witness_K7_plain_vs_cpu={
-                       k: v for k, v in _step_err(torch, names, k7_plain,
+                       k: v for k, v in step_err(torch, names, k7_plain,
                                                   ref).items() if k in brief},
                    witness_all_plain_vs_cpu={
-                       k: v for k, v in _step_err(torch, names, plain,
+                       k: v for k, v in step_err(torch, names, plain,
                                                   ref).items() if k in brief},
                    **({"witness_h1_flips": flips, "encode_tol": encode_tol,
                        "vs_encode_alone_on_card": {
@@ -1198,14 +1275,33 @@ def profile_block(torch, system, block_ms):
     busy = sum(k[0] for k in kernels)
     parts = {key: sum(k[0] for k in kernels if KERNEL_NAMES[key] in k[2]
                       or (key == "K8" and "field_tail_bwd_reduce" in k[2]))
-             for key in path_kernels(system.cfg)}
+             for key in path_kernels(system.ngp)}
     _timed_where_launched(counters, before, parts)
     return dict(block_ms_unprofiled=block_ms, block_ms_profiled=wall * 1e3,
                 device_busy_ms=busy, idle_share=1.0 - busy / block_ms,
                 kernels_ms=parts, other_kernels_ms=busy - sum(parts.values()),
+                ranges=_range_ms(prof),
                 launches_device=sum(k[1] for k in kernels),
                 top=[{"ms": ms, "count": n, "name": name[:90]}
                      for ms, n, name in kernels[:16]])
+
+
+def _range_ms(prof):
+    """Calls and device ms of the port's profiler ranges in a profile
+    (the x-grad encode's forward and backward, `XGRAD_CALLS`): the device
+    time of the kernels launched inside each range."""
+    from ngp_pl_torch.ops.hash_encoding import XGRAD_CALLS
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.key in XGRAD_CALLS:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            got = out.setdefault(ev.key, {"calls": 0, "device_ms": 0.0})
+            got["calls"] = max(got["calls"], ev.count)
+            got["device_ms"] = max(got["device_ms"], us / 1e3)
+    return out
 
 
 def render_slice(torch, tcfg, views):
@@ -1227,7 +1323,7 @@ def render_slice(torch, tcfg, views):
         if not (bool(torch.isfinite(opa).all()) and float(opa.min()) >= 0.0
                 and float(opa.max()) <= 1.0 + 1e-6):
             raise AssertionError("opacity outside [0, 1]")
-    fwd, _, tail, _ = path_kernels(tcfg.ngp_config())
+    fwd, _, tail, _ = path_kernels(res.ngp)
     if not (launches[fwd] > 0 and launches[tail] > 0):
         raise AssertionError(f"a kernel was not launched: {launches}")
     return res, {"views": len(res.images), "width": 800, "height": 800,
@@ -1315,7 +1411,7 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
         torch.cuda.empty_cache()
         return train, {}
     x, gr, w1 = capture(system)
-    fwd, bwd = path_kernels(system.cfg)[:2]
+    fwd, bwd = path_kernels(system.ngp)[:2]
     at_step = {
         fwd: _fwd_record(torch, fwd, x, system.ngp.encode_table(), w1,
                          system.ngp.spec, with_feats=True),
@@ -1423,6 +1519,98 @@ def mc_path(torch, card):
     return train, recs
 
 
+HEAD_STEPS = 256               # the HDR and pose fits
+FLAGSHIP_KERNELS = ("K1", "K2+K5", "K7", "K8")
+
+
+def hdr_path(torch, card):
+    """`--use_exposure` on the flagship, CSR pinned (`train_config`): the
+    seeded step as `train_reference` holds the flagship's (the encode
+    kernel held by its own witness, the CPU by the no-kernel witness:
+    the tail's bf16 roundings move with the card's summation order), once
+    more on a batch with an exposure column; HEAD_STEPS steps of `fit`,
+    counted from 0 just before, K1 and K2+K5 launched and K7 and K8 not
+    (JAX's fused tail covers the Sigmoid head only); the trained field's
+    800x800 frame (K1 only) and a profiled block.  Returns the fit's
+    record and the launches."""
+    from ngp_pl_torch.benchmarking.train_setup import train_config, train_system
+
+    tcfg = train_config(use_exposure=True)
+    system = train_system(tcfg)
+    system.on_train_start()
+    system._refresh_grid(0)
+    for seed, expo in ((7, False), (8, True)):
+        log({"phase": "train_reference_hdr", "state": "seeded",
+             "exposure_column": expo,
+             **train_reference(torch, system, STEP_TOL, STEP_TOL,
+                               seeds=(seed,), cpu_floor_by_witness=True,
+                               encode_floor_by_witness=True,
+                               exposure=expo)})
+    del system
+    torch.cuda.empty_cache()
+    system = train_system(tcfg)
+    train = train_fit(torch, system, HEAD_STEPS)
+    bad = {k: train["launches"][k] for k in ("K7", "K8")
+           if train["launches"][k]}
+    if bad:
+        raise AssertionError(f"the HDR path launched the fused tail: {bad}")
+    log({"phase": "train_hdr", "card": card, **train})
+    render = trained_render(torch, system)
+    if not (render["launches"]["K1"] > 0 and render["launches"]["K7"] == 0):
+        raise AssertionError(f"HDR render launches: {render['launches']}")
+    log({"phase": "trained_render_hdr", "card": card, **render})
+    log({"phase": "profile", "of": "train_block_hdr", "card": card,
+         **profile_block(torch, system, train["block_ms"])})
+    del system
+    torch.cuda.empty_cache()
+    return train
+
+
+def pose_path(torch, card):
+    """`--optimize_ext` on the flagship, CSR pinned: the seeded step on the
+    card against the CPU (loss, every net gradient, dR and dT; the path
+    has no hand kernel, so the plain versions on the card are the card's
+    step itself); HEAD_STEPS steps of `fit`, counted from 0 just before,
+    with rays/s and the allocator's peak; K1, K2+K5, K7 and K8 must launch
+    0 times, as in the JAX package, where `need_x_grad` takes the XLA
+    encode and tail: a launch would mean another function was computed;
+    dR and dT norms; a profiled block with the x-grad encode's ranges.
+    Returns the fit's record."""
+    from ngp_pl_torch.benchmarking.train_setup import train_config, train_system
+
+    tcfg = train_config(optimize_ext=True)
+    system = train_system(tcfg)
+    system.on_train_start()
+    system._refresh_grid(0)
+    log({"phase": "train_reference_pose", "state": "seeded",
+         **train_reference(torch, system, STEP_TOL, STEP_TOL)})
+    del system
+    torch.cuda.empty_cache()
+    system = train_system(tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    train = train_fit(torch, system, HEAD_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k: train["launches"][k] for k in FLAGSHIP_KERNELS
+                if train["launches"][k]}
+    if launched:
+        raise AssertionError(f"the pose path launched hand kernels, which "
+                             f"compute another function: {launched}")
+    norms = {k: float(torch.linalg.vector_norm(getattr(system.pose,
+                                                      k).detach()))
+             for k in ("dR", "dT")}
+    if not (all(math.isfinite(v) and v > 0 for v in norms.values())):
+        raise AssertionError(f"the poses did not move: {norms}")
+    log({"phase": "train_pose", "card": card, "peak_allocated_bytes": peak,
+         "pose_norms": norms, "pose_count": system.pose.opt.count, **train})
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_block(torch, system, train["block_ms"])
+    log({"phase": "profile", "of": "train_block_pose", "card": card,
+         "peak_allocated_bytes": torch.cuda.max_memory_allocated(), **prof})
+    del system
+    torch.cuda.empty_cache()
+    return train
+
+
 RESUME_STEPS = 256             # fitted before the save, and again after
 BENCH_WARM_STEPS = 512         # the bench's warm-up here (its default: 2048)
 BENCH_STEPS = 192
@@ -1498,7 +1686,7 @@ def resume_path(torch):
     if not (all(math.isfinite(h["loss"]) for h in hist)
             and last["skipped_total"] == 0
             and loaded._host_step == 2 * RESUME_STEPS
-            and all(launches[k] > 0 for k in path_kernels(loaded.cfg))):
+            and all(launches[k] > 0 for k in path_kernels(loaded.ngp))):
         raise AssertionError(f"the resumed fit failed: {hist}, {launches}")
     del saved
     torch.cuda.empty_cache()
@@ -1693,6 +1881,10 @@ def main() -> int:
     for key, rec in at_step.items():
         checks[key]["at_train_step"] = rec
     launches["train_l16f2"] = train["launches"]
+
+    # the HDR head and pose refinement on the flagship, counted the same way
+    launches["train_hdr"] = hdr_path(torch, card)["launches"]
+    launches["train_pose"] = pose_path(torch, card)["launches"]
 
     no_library = "no single PyTorch call computes this function"
     rows = (("hash_encode_fwd (K1)", "K1", "hash_encode_fwd.cu",

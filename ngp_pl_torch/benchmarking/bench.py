@@ -14,6 +14,8 @@ least one) steps between two fences (a host read of the loss).  Batch
 BENCH_BATCH (8192).  BENCH_SCALE (0.5) above 0.5 trains the same views
 with bench.py's multi-cascade / exponential-step model of that scale
 (at 4: four cascades, steps growing by 1/256), on a black background.
+`--use_exposure` and `--optimize_ext` train the HDR head and pose
+refinement, as the train entry point's flags do.
 
 Prints warm-up progress on stderr and ONE JSON line on stdout:
 {"metric": "train_rays_per_s", "value", "unit", "vs_baseline"}, where the
@@ -30,15 +32,18 @@ import time
 BASELINE_RAYS_PER_S = 1.0e6
 
 
-def bench_system(device: str, batch_size: int, scale: float):
-    """bench.py's system: the flagship on 8 views at 96x96, one test view."""
+def bench_system(device: str, batch_size: int, scale: float,
+                 use_exposure: bool = False, optimize_ext: bool = False):
+    """bench.py's system: the flagship on 8 views at 96x96, one test view
+    (with the HDR head or pose refinement where asked)."""
     from ngp_pl_torch.config import TrainConfig
     from ngp_pl_torch.datasets.synthetic import SyntheticDataset
     from ngp_pl_torch.training.system import NeRFSystem
 
     tcfg = TrainConfig(dataset_name="synthetic", batch_size=batch_size,
                        scale=scale, num_epochs=30, exp_name="bench",
-                       no_save_test=True)
+                       no_save_test=True, use_exposure=use_exposure,
+                       optimize_ext=optimize_ext)
     return NeRFSystem(
         tcfg, device=device,
         train_dataset=SyntheticDataset(split="train", img_size=96, n_train=8,
@@ -83,12 +88,17 @@ def run(system, warm_steps: int, steps: int, log=sys.stderr) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--use_exposure", action="store_true")
+    ap.add_argument("--optimize_ext", action="store_true")
     args = ap.parse_args(argv)
+    flags = {k: True for k in ("use_exposure", "optimize_ext")
+             if getattr(args, k)}
     batch_size = int(os.environ.get("BENCH_BATCH", 8192))
     warm_steps = int(os.environ.get("BENCH_WARM_STEPS", 2048))
     steps = int(os.environ.get("BENCH_STEPS", 192))
     scale = float(os.environ.get("BENCH_SCALE", 0.5))
-    rec = run(bench_system(args.device, batch_size, scale), warm_steps, steps)
+    rec = run(bench_system(args.device, batch_size, scale, **flags),
+              warm_steps, steps)
     print(json.dumps(rec), flush=True)
     return rec
 

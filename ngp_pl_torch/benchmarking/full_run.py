@@ -44,9 +44,9 @@ GEOMETRIES = {"L8F4": (8, 4, 19), "L16F2": (16, 2, 19),
               "ceiling": (16, 4, 20)}
 
 
-def run_config(steps: int, geometry: str, ceiling: bool):
+def run_config(steps: int, geometry: str, ceiling: bool, **flags):
     """(TrainConfig, run name, geometry as LxFyTz) of the JAX script's
-    run."""
+    run; `flags` (use_exposure, optimize_ext) go to the config."""
     from ngp_pl_torch.config import TrainConfig
 
     name = "ceiling" if ceiling else geometry
@@ -55,7 +55,7 @@ def run_config(steps: int, geometry: str, ceiling: bool):
                        num_epochs=max(1, steps // 1000), iters_per_epoch=1000,
                        no_save_test=True,
                        n_levels=n_levels, n_features=n_features,
-                       log2_hashmap_size=log2_t)
+                       log2_hashmap_size=log2_t, **flags)
     return tcfg, name, f"L{n_levels}F{n_features}T{log2_t}"
 
 
@@ -95,10 +95,16 @@ def main(argv=None) -> dict:
                     help="training views (the JAX quality protocol: 32)")
     ap.add_argument("--tag", type=str, default="")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--use_exposure", action="store_true",
+                    help="the HDR head (as the train entry point's flag)")
+    ap.add_argument("--optimize_ext", action="store_true",
+                    help="pose refinement (as the train entry point's flag)")
     args = ap.parse_args(argv)
 
     steps = args.steps
-    tcfg, name, geometry = run_config(steps, args.geometry, args.ceiling)
+    tcfg, name, geometry = run_config(
+        steps, args.geometry, args.ceiling, use_exposure=args.use_exposure,
+        optimize_ext=args.optimize_ext)
     tag = args.tag or name
     tcfg = tcfg.replace(exp_name=f"full_run_{tag}")
     system = make_system(tcfg, args.img_size, args.n_train, args.device)

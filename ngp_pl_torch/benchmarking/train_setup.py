@@ -7,7 +7,8 @@ from __future__ import annotations
 def train_config(**kw):
     """The flagship's train configuration on bench.py's scene (batch 8192,
     the 30-epoch cosine, the CSR layout, so that readings stay comparable
-    across revisions); `kw` changes the geometry or the layout."""
+    across revisions); `kw` changes the geometry, the layout or the flags
+    (`use_exposure`, `optimize_ext`)."""
     from ngp_pl_torch.config import TrainConfig
 
     return TrainConfig(**{"dataset_name": "synthetic", "batch_size": 8192,

@@ -79,14 +79,16 @@ class TrainConfig:
 
     Defaults are the flagship model: scale 0.5 (one cascade, uniform steps)
     and the L=8, F=4, T=2^19 brick table; `--n_levels 16 --n_features 2`
-    is the reference's own L16F2 geometry.  The port's field covers the
-    Sigmoid head only, so the HDR switch is not a flag yet.  The train
-    layout defaults to "auto", as the JAX package's: CSR through grid
-    warmup, then strided or CSR by the demand's shape."""
+    is the reference's own L16F2 geometry.  `use_exposure` switches the
+    head to HDR (log-radiance and per-channel tonemappers, `rgb_act`
+    "None"); `optimize_ext` trains per-image pose corrections at `pose_lr`.
+    The train layout defaults to "auto", as the JAX package's: CSR through
+    grid warmup, then strided or CSR by the demand's shape."""
 
     dataset_name: str = "synthetic"
     downsample: float = 1.0
     scale: float = 0.5
+    use_exposure: bool = False                 # HDR head (opt.py:18-22)
     n_levels: int = 8
     n_features: int = 4                        # per level, F in {2, 4}
     log2_hashmap_size: int = 19
@@ -99,10 +101,12 @@ class TrainConfig:
     num_epochs: int = 30
     iters_per_epoch: int = 1000
     lr: float = 1e-2
+    optimize_ext: bool = False  # per-image pose refinement (dR, dT)
     random_bg: bool = False     # exp-stepping scenes: a random train bg
     # optimizer constants (reference train.py:131-137)
     adam_eps: float = 1e-15
     lr_final_div: float = 30.0                 # cosine anneal floor = lr/30
+    pose_lr: float = 1e-6                      # reference train.py:128
     # density-grid cadence (reference train.py:58-59, 160-163)
     grid_update_interval: int = 16
     grid_warmup_steps: int = 256
@@ -124,6 +128,7 @@ class TrainConfig:
     def ngp_config(self) -> NGPConfig:
         return NGPConfig(
             scale=self.scale,
+            rgb_act="None" if self.use_exposure else "Sigmoid",
             n_levels=self.n_levels,
             n_features_per_level=self.n_features,
             log2_hashmap_size=self.log2_hashmap_size,
@@ -143,6 +148,7 @@ def add_eval_args(parser) -> None:
                         choices=["synthetic"])
     parser.add_argument("--downsample", type=float, default=d.downsample)
     parser.add_argument("--scale", type=float, default=d.scale)
+    parser.add_argument("--use_exposure", action="store_true")
     parser.add_argument("--n_levels", type=int, default=d.n_levels,
                         help="hash-encoding levels L (reference: 16)")
     parser.add_argument("--n_features", type=int, default=d.n_features,
@@ -168,6 +174,7 @@ def add_train_args(parser) -> None:
     parser.add_argument("--iters_per_epoch", type=int,
                         default=d.iters_per_epoch)
     parser.add_argument("--lr", type=float, default=d.lr)
+    parser.add_argument("--optimize_ext", action="store_true")
     parser.add_argument("--distortion_loss_w", type=float,
                         default=d.distortion_loss_w)
     parser.add_argument("--random_bg", action="store_true")

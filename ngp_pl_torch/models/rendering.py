@@ -129,16 +129,19 @@ def _default_chain(cfg, rcfg) -> int:
 
 def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                           rcfg: RenderConfig, pool_mult: Optional[int] = None,
-                          chain_length: int = 0, occ_grid=None
+                          chain_length: int = 0, occ_grid=None,
+                          exposure: Optional[torch.Tensor] = None
                           ) -> Dict[str, torch.Tensor]:
     """Differentiable train render into the CSR pool (rendering.py:186-305).
     With `win_rows` under one cascade and uniform steps the 8-step windowed
     march (the caller checks `segment_march_dmax_ok`); otherwise
     `march_rays_train` on `occ_grid`, with the two-window chain where
     `win_rows` is given (the caller checks `window_march_mc_ok`).
-    Gradients reach the field's parameters; positions are o + t * d with t
-    and the rays held fixed.  Returns the compositor's outputs plus the
-    pool and the march's demand statistics."""
+    Gradients reach the field's parameters and, through the positions
+    o + t * d (t held fixed: only the march runs without autograd) and the
+    directions, the rays.  `exposure` (N, 1) goes to each ray's samples
+    (HDR head).  Returns the compositor's outputs plus the pool and the
+    march's demand statistics."""
     cfg = ngp.cfg
     N = rays_o.shape[0]
     hits = scene_hits(rays_o, rays_d, cfg.scale)
@@ -161,7 +164,8 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     ridx = torch.clamp(m.ray_idx, 0, N - 1)
     o, d = rays_o[ridx], rays_d[ridx]
     xyz = _fma(m.ts[:, None], d, o)
-    sigmas, rgbs = ngp(xyz, d)
+    sigmas, rgbs = ngp(xyz, d, exposure=None if exposure is None
+                       else exposure[ridx])
     out = composite_train(sigmas, rgbs, m.deltas, m.ts, m.ray_idx, m.valid,
                           m.offsets, n_rays=N, T_threshold=rcfg.t_threshold)
     out["rgb"] = out["rgb"] + bg_rgb[None, :] * (1.0 - out["opacity"][:, None])
@@ -176,7 +180,8 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
 
 def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                       rcfg: RenderConfig, n_samples: Optional[int] = None,
-                      chain_length: int = 0, occ_grid=None
+                      chain_length: int = 0, occ_grid=None,
+                      exposure: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
     """Differentiable train render into the strided (N, S) layout
     (rendering.py:103-183); the march takes `win_rows` or `occ_grid` as
@@ -184,7 +189,8 @@ def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     with more than S occupied samples is cut by the march and left out of
     the loss (`loss_mask`): a partial render would bias it towards its
     entry slab.  Invalid slots sit at their ray's origin (t = 0) with zero
-    weight."""
+    weight.  Gradients reach the rays as in the CSR render; `exposure`
+    (N, 1) is per ray."""
     cfg = ngp.cfg
     S = n_samples or rcfg.train_pool_mult
     hits = scene_hits(rays_o, rays_d, cfg.scale)
@@ -196,7 +202,7 @@ def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                 cfg, rcfg), cascades=cfg.cascades,
             exp_step_factor=cfg.exp_step_factor, occ_grid=occ_grid)
     xyz = _fma(m.ts[..., None], rays_d[:, None, :], rays_o[:, None, :])
-    sigmas, rgbs = ngp.forward_rays(xyz, rays_d)
+    sigmas, rgbs = ngp.forward_rays(xyz, rays_d, exposure=exposure)
     out = composite_train_strided(sigmas, rgbs, m.deltas, m.ts, m.valid,
                                   T_threshold=rcfg.t_threshold)
     out["rgb"] = out["rgb"] + bg_rgb[None, :] * (1.0 - out["opacity"][:, None])
@@ -221,7 +227,8 @@ def _at_rows(full, raw, delta, add: bool):
 def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
                              *, rcfg: RenderConfig, n_samples: int = 16,
                              chain_length: int = 256, n_rounds: int = 4,
-                             lambda_distortion: float = 0.0, occ_grid=None
+                             lambda_distortion: float = 0.0, occ_grid=None,
+                             exposure: Optional[torch.Tensor] = None
                              ) -> Dict[str, torch.Tensor]:
     """Differentiable train render in `n_rounds` rounds
     (rendering.py:308-478).  Round r gives max(256, N >> r) slots to the
@@ -234,7 +241,9 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
     round from the carried prefix sums of w and w t.  Writes to the
     per-ray state use the unclamped sentinel: clamping it onto ray N - 1
     would collide with that ray's own write.  The rounds march as the test
-    round does for `win_rows` and `occ_grid` (`march_rays_test_round`)."""
+    round does for `win_rows` and `occ_grid` (`march_rays_test_round`).
+    Gradients reach the rays as in the CSR render; `exposure` (N, 1) is per
+    ray."""
     cfg = ngp.cfg
     N = rays_o.shape[0]
     S = n_samples
@@ -279,7 +288,8 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
                 n_samples=S, chain_length=chain_length, win_rows=win_rows)
         valid = valid & sel[:, None]
         xyz = _fma(ts[..., None], rd[:, None, :], ro[:, None, :])
-        sigmas, rgbs = ngp.forward_rays(xyz, rd)
+        sigmas, rgbs = ngp.forward_rays(
+            xyz, rd, exposure=None if exposure is None else exposure[idx])
 
         sd = torch.where(valid, torch.clamp_max(sigmas * dts, SD_CLAMP), 0.0)
         excl = torch.cumsum(sd, dim=1) - sd
@@ -479,19 +489,26 @@ class RoundRenderer:
     def _render_unspanned(self, occ_grid, rays_o, rays_d, bg_color):
         """Chunks of consecutive rays from their box hits
         (rendering.py:939-968): each chunk's alive count, and so its
-        buckets, counts the rays of that chunk that hit the box.  The JAX
-        package pads a short last chunk with rays from (1, 1, 1) along
-        (1, 1, 1), which count there; here it holds the real rays only."""
+        buckets, counts the rays of that chunk that hit the box.  A short
+        last chunk is padded, as the JAX package pads it, with rays from
+        (1, 1, 1) along (1, 1, 1): inside a box of scale > 1 they are
+        alive, move the chunk's buckets and add to its samples and rounds;
+        their outputs are dropped."""
         parts, total, rounds, alive = [], 0, 0, 0
-        for i in range(0, rays_o.shape[0], self.chunk):
+        N = rays_o.shape[0]
+        for i in range(0, N, self.chunk):
             ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
+            n = ro.shape[0]
+            if n < self.chunk:
+                ro, rd = (torch.cat([a, a.new_ones((self.chunk - n, 3))])
+                          for a in (ro, rd))
             hits = scene_hits(ro, rd, self.ngp.cfg.scale)
             r, d, o, ns, nr = self._render_chunk(occ_grid, ro, rd,
                                                  hits[:, 0], hits[:, 1])
-            parts.append((r, d, o))
+            parts.append((r[:n], d[:n], o[:n]))
             total += int(ns)
             rounds += nr
-            alive += int((hits[:, 0] >= 0).sum())
+            alive += int((hits[:n, 0] >= 0).sum())
         rgb, depth, opacity = (torch.cat(p) for p in zip(*parts))
         return {"rgb": rgb + bg_color * (1.0 - opacity[:, None]),
                 "depth": depth, "opacity": opacity, "total_samples": total,

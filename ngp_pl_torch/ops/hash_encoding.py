@@ -30,6 +30,9 @@ counterpart of `_encode_mlp_pl_cv`, ngp_pl_tpu/ops/hash_encoding.py:516-606):
 its forward is K1 or K3, its backward the table-gradient kernel plus
 d_w1 = feats^T g as a matmul, which the TPU left to XLA as well.  No
 position gradient is produced (`need_x_grad=False`, the flagship case).
+With a position gradient (pose refinement) the encode is
+`hash_encode_mlp_xgrad`, the counterpart of the XLA `_encode_mlp_cv`
+(:401-480), as PyTorch ops on both devices: another function than K1's.
 """
 from __future__ import annotations
 
@@ -463,3 +466,123 @@ def hash_encode_mlp(x: torch.Tensor, table: torch.Tensor, w1: torch.Tensor,
     encode reads (`encode_table(table)`: the f16 copy at F=4, the table
     itself at F=2)."""
     return HashEncodeMLP.apply(x, table, w1, enc_table, spec)
+
+
+# --- the encode with a position gradient (pose refinement) ---------------
+#
+# The counterpart of `_encode_mlp_cv` (ngp_pl_tpu/ops/hash_encoding.py:
+# 401-480), which the JAX package runs in XLA whenever positions need a
+# gradient: f32 rows gathered from the f32 table, per-lane trilinear
+# weights in f32, bf16 weighted rows contracted with bf16 w1 in f32 sums.
+# It is another function than K1/K3 (those read the f16 copy at F=4 and
+# round the corner weights through bf16 there), so it runs as PyTorch ops
+# on both devices, a level at a time to bound the (N, W) intermediates.
+# `XGRAD_CALLS` counts its forward and backward calls, and each runs
+# inside a profiler range of its name.
+
+XGRAD_CALLS = {"xgrad_encode_fwd": 0, "xgrad_encode_bwd": 0}
+
+
+def _lane_consts(spec: HashGridSpec, device):
+    """Each lane's corner point coordinates (cx, cy, cz) in {0, 1, 2}, its
+    feature index and whether it holds a point (27 * F of the W lanes)."""
+    W, F = spec.row_width, spec.n_features
+    lane = torch.arange(W, device=device)
+    p = torch.clamp_max(lane // F, BRICK_PTS ** 3 - 1)
+    valid = (lane < BRICK_PTS ** 3 * F).to(torch.float32)
+    return p // 9, (p // 3) % 3, p % 3, lane % F, valid
+
+
+def _axis_w(c, local_a, frac_a):
+    """Weight of lane coordinate c along one axis: 1 - frac at the cell's
+    low corner, frac at its high corner, 0 elsewhere; (N, W)."""
+    lo = (c[None, :] == local_a[:, None]).to(torch.float32)
+    hi = (c[None, :] == local_a[:, None] + 1).to(torch.float32)
+    return lo * (1.0 - frac_a[:, None]) + hi * frac_a[:, None]
+
+
+def _axis_dw(c, local_a):
+    """d _axis_w / d frac along one axis: +1, -1 or 0; (N, W)."""
+    return ((c[None, :] == local_a[:, None] + 1).to(torch.float32)
+            - (c[None, :] == local_a[:, None]).to(torch.float32))
+
+
+def _xgrad_level(table, l, slot, local, frac, consts):
+    """Level l's f32 rows (N, W), per-axis weights and lane weights."""
+    cx, cy, cz, _, valid = consts
+    rows = table[slot[l]]
+    ws = (_axis_w(cx, local[l, :, 0], frac[l, :, 0]),
+          _axis_w(cy, local[l, :, 1], frac[l, :, 1]),
+          _axis_w(cz, local[l, :, 2], frac[l, :, 2]))
+    wrow = ws[0] * ws[1] * ws[2] * valid[None, :]
+    return rows, ws, wrow
+
+
+class HashEncodeMLPXGrad(torch.autograd.Function):
+    """h1 = encode(x) @ w1 with gradients to x, the f32 table and w1, as
+    `_encode_mlp_cv` computes them."""
+
+    @staticmethod
+    def forward(ctx, x, table, w1, spec):
+        XGRAD_CALLS["xgrad_encode_fwd"] += 1
+        with torch.profiler.record_function("xgrad_encode_fwd"):
+            consts = _lane_consts(spec, x.device)
+            slot, local, frac = slots_local_frac_lm(x.clamp(0.0, 1.0), spec)
+            w1b = _bf(expand_w1(w1, spec))                      # (L, W, H)
+            h1 = x.new_zeros((x.shape[0], w1.shape[-1]))
+            for l in range(spec.n_levels):
+                rows, _, wrow = _xgrad_level(table, l, slot, local, frac,
+                                             consts)
+                h1 += _bf(rows * wrow) @ w1b[l]
+        ctx.save_for_backward(x, table, w1)
+        ctx.spec = spec
+        return h1
+
+    @staticmethod
+    def backward(ctx, g):
+        XGRAD_CALLS["xgrad_encode_bwd"] += 1
+        with torch.profiler.record_function("xgrad_encode_bwd"):
+            return _xgrad_backward(ctx, g)
+
+
+def _xgrad_backward(ctx, g):
+    x, table, w1 = ctx.saved_tensors
+    spec = ctx.spec
+    L, F, W = spec.n_levels, spec.n_features, spec.row_width
+    consts = _lane_consts(spec, x.device)
+    cx, cy, cz, lane_f, valid = consts
+    slot, local, frac = slots_local_frac_lm(x.clamp(0.0, 1.0), spec)
+    w1b = _bf(expand_w1(w1.detach(), spec))
+    g16 = _bf(g)
+    d_table = torch.zeros_like(table)
+    d_w1big = []
+    d_x = torch.zeros_like(x)
+    for l in range(L):
+        rows, (wx, wy, wz), wrow = _xgrad_level(table, l, slot, local,
+                                                frac, consts)
+        d_w1big.append(_bf(rows * wrow).T @ g16)                # (W, H)
+        d_wr = g16 @ w1b[l].T                                   # (N, W)
+        d_table.index_add_(0, slot[l], d_wr * wrow)
+        rg = rows * d_wr * valid[None, :]
+        dwx = _axis_dw(cx, local[l, :, 0])
+        dwy = _axis_dw(cy, local[l, :, 1])
+        dwz = _axis_dw(cz, local[l, :, 2])
+        d_frac = torch.stack([(rg * dwx * wy * wz).sum(-1),
+                              (rg * wx * dwy * wz).sum(-1),
+                              (rg * wx * wy * dwz).sum(-1)], dim=-1)
+        d_x += d_frac * float(spec.resolutions[l])
+    idx = (torch.arange(L, device=x.device)[:, None] * F
+           + lane_f[None, :]).reshape(-1)
+    d_w1 = torch.zeros_like(w1).index_add_(
+        0, idx, torch.stack(d_w1big).reshape(L * W, -1))
+    d_x = d_x * ((x > 0.0) & (x < 1.0)).to(torch.float32)
+    return d_x, d_table, d_w1, None
+
+
+def hash_encode_mlp_xgrad(x: torch.Tensor, table: torch.Tensor,
+                          w1: torch.Tensor, spec: HashGridSpec) -> torch.Tensor:
+    """Differentiable hash encode + first layer with the position gradient
+    (`hash_encode_mlp(..., need_x_grad=True)` of the JAX package): x (N, 3)
+    in [0, 1]^3 (clipped for the lookup; its gradient is 0 outside the open
+    box), table (rows, W) f32 parameter, w1 (L*F, H) -> h1 (N, H) f32."""
+    return HashEncodeMLPXGrad.apply(x, table, w1, spec)

@@ -331,7 +331,9 @@ def _f32(v: float) -> float:
 def _fma(a, b, c) -> torch.Tensor:
     """a * b + c with one rounding to float32 (XLA's fused multiply-add).
     For the march's operands (chain steps k < 2^12 times dt_min, positions
-    and directions of order 1) the float64 product and sum are exact."""
+    and directions of order 1) the float64 product and sum are exact.
+    Autograd passes the casts: the gradient to b is g * a and to c is g,
+    each rounded once to float32, as XLA's backward of the product."""
     a = a.double() if isinstance(a, torch.Tensor) else a
     b = b.double() if isinstance(b, torch.Tensor) else b
     c = c.double() if isinstance(c, torch.Tensor) else c

@@ -14,6 +14,13 @@ distortion loss.  Runs on the card unless `--device cpu` is given.
         --num_epochs 1 --iters_per_epoch 32
     python -m ngp_pl_torch.train --ckpt_path \\
         ckpts/synthetic/exp/epoch=30.npz --val_only
+    python -m ngp_pl_torch.train --use_exposure --optimize_ext \\
+        --num_epochs 1 --iters_per_epoch 512
+
+`--use_exposure` trains the HDR head (log-radiance and per-channel
+tonemappers; a 4-channel ray store gives each ray its exposure) and
+`--optimize_ext` per-image pose corrections of the train views, each alone
+or together, in every layout.
 
 `--ckpt_path` resumes from a full checkpoint of either package (params,
 Adam state, grid state and step) and trains the steps left of

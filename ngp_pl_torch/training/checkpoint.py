@@ -9,7 +9,12 @@ loads in the other.  A slim checkpoint holds the parameters
 parameters, the occupancy grid state (`grid.density_grid`, ...,
 `grid.win_rows`), the optax Adam state of `optax.adam(schedule)`
 (`opt[0].count`, `opt[0].mu[...]`, `opt[0].nu[...]` and the schedule's
-`opt[1].count`, which optax advances with the Adam count) and `__step__`.
+`opt[1].count`, which optax advances with the Adam count) and `__step__`;
+with `--optimize_ext` the same state under `multi_transform`'s keys
+(`opt.inner_states['net'].inner_state[0].mu['net'][...]`, ...), the pose
+optimizer's under `opt.inner_states['pose']...` and the poses under
+`pose['dR']`, `pose['dT']`.  The HDR head's tonemappers are parameters
+like the others (`params['tonemapper'][i][j]`).
 
 The train state is the JAX `TrainState`'s params and optax Adam state
 (`mu`, `nu` in the params' nesting, and the step `count`), as numpy arrays:
@@ -87,14 +92,6 @@ def params_from_numpy(params: Dict, device="cpu") -> Dict:
     return torch.tensor(np.array(params, dtype=np.float32), device=device)
 
 
-def _nested(params: Dict):
-    """Leaves of a {'hash_table', 'sigma_mlp': [...], 'rgb_mlp': [...]}
-    nest in the model's parameter order."""
-    yield params["hash_table"]
-    for name in ("sigma_mlp", "rgb_mlp"):
-        yield from params[name]
-
-
 def load_train_state(ngp, opt, params: Dict, mu: Dict, nu: Dict,
                      count: int) -> None:
     """JAX train state -> port: parameters into `ngp`, Adam moments and
@@ -103,22 +100,53 @@ def load_train_state(ngp, opt, params: Dict, mu: Dict, nu: Dict,
     ngp.load_params(params)
     with torch.no_grad():
         for dst, src in ((opt.mu, mu), (opt.nu, nu)):
-            for d, s in zip(dst, _nested(src)):
-                d.copy_(torch.as_tensor(np.asarray(s, np.float32)))
+            for d, (name, i, _) in zip(dst, ngp._slots()):
+                d.copy_(torch.as_tensor(np.asarray(
+                    ngp._leaf(src, name, i), np.float32)))
     opt.count = int(count)
+
+
+def _nest_like(ngp, tensors) -> Dict:
+    """Tensors in the model's `_slots` order -> numpy arrays in the JAX
+    nesting of its parameters."""
+    out = ngp.params_numpy()
+    for t, (name, i, _) in zip(tensors, ngp._slots()):
+        a = t.detach().cpu().numpy()
+        if i is None:
+            out[name] = a
+        elif isinstance(i, tuple):
+            out[name][i[0]][i[1]] = a
+        else:
+            out[name][i] = a
+    return out
 
 
 def train_state_numpy(ngp, opt) -> Tuple[Dict, Dict, Dict, int]:
     """Port -> JAX train state: (params, mu, nu) nests of numpy arrays in
     the JAX layout and the step count."""
-    ns = len(ngp.sigma_mlp)
+    return (ngp.params_numpy(), _nest_like(ngp, opt.mu),
+            _nest_like(ngp, opt.nu), opt.count)
 
-    def nest(tensors):
-        ts = [t.detach().cpu().numpy() for t in tensors]
-        return {"hash_table": ts[0], "sigma_mlp": ts[1:1 + ns],
-                "rgb_mlp": ts[1 + ns:]}
 
-    return ngp.params_numpy(), nest(opt.mu), nest(opt.nu), opt.count
+def pose_state_numpy(pose) -> Dict:
+    """A `PoseRefinement`'s dR, dT and its Adam state as numpy nests
+    {'params', 'mu', 'nu': {'dR', 'dT'}, 'count'}."""
+    def nest(ts):
+        return {k: t.detach().cpu().numpy() for k, t in zip(("dR", "dT"), ts)}
+
+    return {"params": nest((pose.dR, pose.dT)), "mu": nest(pose.opt.mu),
+            "nu": nest(pose.opt.nu), "count": pose.opt.count}
+
+
+def load_pose_state(pose, state: Dict) -> None:
+    """`pose_state_numpy`'s inverse, into an existing `PoseRefinement`."""
+    with torch.no_grad():
+        for dst, src in (((pose.dR, pose.dT), state["params"]),
+                         (pose.opt.mu, state["mu"]),
+                         (pose.opt.nu, state["nu"])):
+            for d, k in zip(dst, ("dR", "dT")):
+                d.copy_(torch.as_tensor(np.asarray(src[k], np.float32)))
+    pose.opt.count = int(state["count"])
 
 
 def save_slim_checkpoint(path: str, *, params: Dict, occ_grid) -> None:
@@ -173,42 +201,68 @@ def grid_state_from_numpy(grid: Dict[str, np.ndarray],
                      .view(np.int32), np.int32))
 
 
-def _full_arrays(params, mu, nu, count, grid) -> Dict[str, np.ndarray]:
+# optax's state keys: `optax.adam(schedule)` alone, or under
+# `optax.multi_transform({'net': ..., 'pose': adam(pose_lr)})` with
+# `--optimize_ext` (train_step.py:53-66), whose inner states nest each
+# group's moments under the group's name
+_NET = "opt.inner_states['net'].inner_state"
+_POSE = "opt.inner_states['pose'].inner_state[0]"
+
+
+def _net_keys(pose: bool) -> Tuple[str, str, str, str]:
+    """The net's Adam state, its mu and nu, and the schedule's state, as
+    key prefixes: plain `optax.adam`, or the 'net' group of
+    `multi_transform` with --optimize_ext."""
+    if not pose:
+        return "opt[0]", "opt[0].mu", "opt[0].nu", "opt[1]"
+    return (f"{_NET}[0]", f"{_NET}[0].mu['net']", f"{_NET}[0].nu['net']",
+            f"{_NET}[1]")
+
+
+def _full_arrays(params, mu, nu, count, grid, pose=None
+                 ) -> Dict[str, np.ndarray]:
     data = flatten_params(params)
     data.update({f"grid.{k}": np.asarray(grid[k]) for k in GRID_FIELDS})
-    data["opt[0].count"] = np.asarray(count, np.int32)
-    data.update(flatten_params(mu, "opt[0].mu"))
-    data.update(flatten_params(nu, "opt[0].nu"))
-    data["opt[1].count"] = np.asarray(count, np.int32)
+    adam, mu_p, nu_p, sched = _net_keys(pose is not None)
+    if pose is not None:
+        data.update(flatten_params(pose["params"], "pose"))
+        data[f"{_POSE}.count"] = np.asarray(pose["count"], np.int32)
+        data.update(flatten_params(pose["mu"], f"{_POSE}.mu['pose']"))
+        data.update(flatten_params(pose["nu"], f"{_POSE}.nu['pose']"))
+    data[f"{adam}.count"] = np.asarray(count, np.int32)
+    data.update(flatten_params(mu, mu_p))
+    data.update(flatten_params(nu, nu_p))
+    data[f"{sched}.count"] = np.asarray(count, np.int32)
     return data
 
 
 def save_checkpoint(path: str, *, params: Dict, mu: Dict, nu: Dict,
                     count: int, grid: Dict[str, np.ndarray],
-                    step: int) -> None:
+                    step: int, pose: Dict = None) -> None:
     """A full checkpoint (checkpoint.py:54-69) of numpy nests as
-    `train_state_numpy` and `grid_state_numpy` give them."""
+    `train_state_numpy`, `grid_state_numpy` and, with `--optimize_ext`,
+    `pose_state_numpy` give them."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    data = _full_arrays(params, mu, nu, count, grid)
+    data = _full_arrays(params, mu, nu, count, grid, pose)
     data["__step__"] = np.asarray(step)
     np.savez(path, **data)
 
 
 def load_checkpoint(path: str, *, params: Dict, mu: Dict, nu: Dict,
-                    count: int, grid: Dict[str, np.ndarray]):
+                    count: int, grid: Dict[str, np.ndarray],
+                    pose: Dict = None):
     """Partial-update load (checkpoint.py:28-49, 72-85): the templates give
     the structure, the archive the values where it has them; a leaf whose
-    shape differs raises.  Returns (params, mu, nu, count, grid, step),
-    step 0 when the archive has none.  Pose-refinement state (`pose[...]`,
-    `--optimize_ext`) raises: the port does not train poses yet."""
+    shape differs raises.  Returns (params, mu, nu, count, grid, pose,
+    step), step 0 when the archive has none.  `pose` (the template of
+    `pose_state_numpy`, `--optimize_ext`) reads the optimizer state under
+    `multi_transform`'s keys and the poses under `pose[...]`; without it
+    the result's pose is None."""
     with np.load(path, allow_pickle=False) as f:
         data = dict(f)
-    if any(k.startswith("pose") for k in data):
-        raise NotImplementedError(
-            f"{path} holds pose-refinement state (--optimize_ext), which the "
-            "port does not train yet")
     out = {}
-    for key, leaf in _full_arrays(params, mu, nu, count, grid).items():
+    for key, leaf in _full_arrays(params, mu, nu, count, grid,
+                                  pose).items():
         if key not in data:
             out[key] = leaf
             continue
@@ -220,7 +274,13 @@ def load_checkpoint(path: str, *, params: Dict, mu: Dict, nu: Dict,
                 "--n_levels/--n_features/--log2_hashmap_size and --scale; "
                 "they must match the training run)")
         out[key] = data[key]
-    return (unflatten_params(out), unflatten_params(out, "opt[0].mu"),
-            unflatten_params(out, "opt[0].nu"), int(out["opt[0].count"]),
-            {k: out[f"grid.{k}"] for k in GRID_FIELDS},
+    adam, mu_p, nu_p, _ = _net_keys(pose is not None)
+    pose_out = None if pose is None else {
+        "params": unflatten_params(out, "pose"),
+        "mu": unflatten_params(out, f"{_POSE}.mu['pose']"),
+        "nu": unflatten_params(out, f"{_POSE}.nu['pose']"),
+        "count": int(out[f"{_POSE}.count"])}
+    return (unflatten_params(out), unflatten_params(out, mu_p),
+            unflatten_params(out, nu_p), int(out[f"{adam}.count"]),
+            {k: out[f"grid.{k}"] for k in GRID_FIELDS}, pose_out,
             int(data.get("__step__", 0)))

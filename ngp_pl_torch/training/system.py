@@ -15,7 +15,15 @@ budget and chain (benchmarks set it before their timed blocks).
 
 Validation scores the test views and writes them as PNGs with their
 turbo-coloured depth; `save` and `load` write and read full checkpoints
-(params, Adam state, grid state and step) in the JAX package's keys.
+(params, Adam state, grid state, step and, with `--optimize_ext`, the
+poses and their optimizer) in the JAX package's keys.
+
+`--optimize_ext` builds the model with the position gradient
+(`need_x_grad`) and trains per-image pose corrections of the train views
+(`PoseRefinement`) through the rays; `--use_exposure` trains the HDR head,
+reading a per-ray exposure from a 4-channel ray store where the dataset has
+one and anchoring the tonemappers at the dataset's `unit_exposure_rgb`
+(0.5 without one).
 
 The march is the JAX package's choice (system.py:227-245): the 8-step
 windows for one cascade with uniform steps where `segment_march_dmax_ok`
@@ -58,8 +66,10 @@ from ngp_pl_torch.training.checkpoint import (
     grid_state_from_numpy,
     grid_state_numpy,
     load_checkpoint,
+    load_pose_state,
     load_slim_checkpoint,
     load_train_state,
+    pose_state_numpy,
     save_checkpoint,
     save_slim_checkpoint,
     train_state_numpy,
@@ -68,6 +78,7 @@ from ngp_pl_torch.training.metrics import psnr as psnr_fn
 from ngp_pl_torch.training.metrics import ssim as ssim_fn
 from ngp_pl_torch.training.train_step import (
     Adam,
+    PoseRefinement,
     block_metrics,
     cosine_epoch_schedule,
     sample_batch,
@@ -97,7 +108,11 @@ class NeRFSystem:
         self.window_march = self._window_ok(self.train_dataset)
         self.test_window = self._window_ok(self.test_dataset)
 
-        self.ngp = NGP(self.cfg, seed=tcfg.seed, device=self.dev)
+        # dL/dx through the encoder is only needed for pose refinement
+        self.ngp = NGP(self.cfg, seed=tcfg.seed, device=self.dev,
+                       need_x_grad=tcfg.optimize_ext)
+        self.unit_exposure_rgb = getattr(self.train_dataset,
+                                         "unit_exposure_rgb", 0.5)
         self.grid_state = init_grid_state(self.cfg, self.dev)
         if tcfg.weight_path:
             params, occ = load_slim_checkpoint(tcfg.weight_path)
@@ -112,6 +127,8 @@ class NeRFSystem:
             eps=tcfg.adam_eps)
 
         self.poses = torch.from_numpy(self.train_dataset.poses).to(self.dev)
+        self.pose = (PoseRefinement(len(self.poses), tcfg.pose_lr, self.dev)
+                     if tcfg.optimize_ext else None)
         self.directions = torch.from_numpy(
             self.train_dataset.directions).to(self.dev)
         self.rays = self.train_dataset.rays.to(self.dev)
@@ -194,20 +211,29 @@ class NeRFSystem:
 
     def _train_step(self) -> Dict[str, torch.Tensor]:
         tcfg = self.tcfg
-        img, pix, target = sample_batch(self.rays, tcfg.batch_size,
-                                        tcfg.ray_sampling_strategy,
-                                        self.generator)
-        rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
+        img, pix, payload = sample_batch(self.rays, tcfg.batch_size,
+                                         tcfg.ray_sampling_strategy,
+                                         self.generator)
+        exposure = (payload[:, 3:4] if tcfg.use_exposure
+                    and payload.shape[-1] >= 4 else None)
+        if self.pose is not None:
+            rays_o, rays_d = self.pose.rays(self.directions[pix], self.poses,
+                                            img)
+        else:
+            rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
         noise = torch.rand(tcfg.batch_size, generator=self.generator,
                            device=self.dev)
         gs = self.grid_state
         return train_step(self.ngp, self.optimizer,
                           gs.win_rows if self.window_march else None,
-                          rays_o.contiguous(), rays_d.contiguous(), target,
-                          noise, self.background(), tcfg=tcfg,
-                          rcfg=self.rcfg, n_samples=self._pool_mult,
+                          rays_o.contiguous(), rays_d.contiguous(),
+                          payload[:, :3], noise, self.background(),
+                          tcfg=tcfg, rcfg=self.rcfg,
+                          n_samples=self._pool_mult,
                           chain_length=self.step_chain(), layout=self.layout,
-                          occ_grid=gs.occ_grid)
+                          occ_grid=gs.occ_grid, exposure=exposure,
+                          unit_exposure_rgb=self.unit_exposure_rgb,
+                          pose=self.pose)
 
     def step_chain(self) -> int:
         """The chain a step marches: per round under rounds
@@ -446,11 +472,13 @@ class NeRFSystem:
     def _state_numpy(self) -> Dict:
         params, mu, nu, count = train_state_numpy(self.ngp, self.optimizer)
         return dict(params=params, mu=mu, nu=nu, count=count,
-                    grid=grid_state_numpy(self.grid_state))
+                    grid=grid_state_numpy(self.grid_state),
+                    pose=None if self.pose is None
+                    else pose_state_numpy(self.pose))
 
     def save(self, path: str):
-        """Full checkpoint: params, Adam state, grid state and step
-        (system.py:633-638)."""
+        """Full checkpoint: params, Adam state, grid state, step and the
+        poses with their optimizer (system.py:633-638)."""
         save_checkpoint(path, **self._state_numpy(), step=self._host_step)
 
     def save_slim(self, path: str):
@@ -464,9 +492,14 @@ class NeRFSystem:
         the encode's table copy and the field tail's packed weights), the
         grid state and the step replaced.  As in the JAX package, the
         demand controller is left as it is (a fresh system's layout,
-        budget and chain start from their initial values)."""
-        params, mu, nu, count, grid, step = load_checkpoint(
+        budget and chain start from their initial values).  With
+        `--optimize_ext` the poses are loaded too; the JAX package's `load`
+        leaves them at their current values (it loads the pose optimizer's
+        state only)."""
+        params, mu, nu, count, grid, pose, step = load_checkpoint(
             path, **self._state_numpy())
         load_train_state(self.ngp, self.optimizer, params, mu, nu, count)
+        if pose is not None:
+            load_pose_state(self.pose, pose)
         self.grid_state = grid_state_from_numpy(grid, self.dev)
         self._host_step = step

@@ -2,9 +2,12 @@
 ngp_pl_tpu/training/train_step.py; reference train.py:159-185).
 
 A step: batch (image, pixel) indices drawn on the device from the resident
-ray store -> rays -> train render in the step's layout (CSR, strided or
-rounds) -> rgb MSE + opacity entropy (+ distortion) -> gradients -> Adam
-with the per-epoch cosine lr and the non-finite skip.
+ray store -> rays (through the refined poses with `--optimize_ext`) ->
+train render in the step's layout (CSR, strided or rounds) -> rgb MSE +
+opacity entropy (+ distortion, + the HDR head's unit-exposure anchor) ->
+gradients -> Adam with the per-epoch cosine lr and the non-finite skip,
+and with `--optimize_ext` a second Adam for the poses beside it
+(`optax.multi_transform`, train_step.py:53-66).
 PyTorch runs it eagerly; nothing in a step reads a value back to the host,
 so a block of steps queues on the card without a sync.
 
@@ -18,12 +21,18 @@ optimizer is XLA code, not a Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ngp_pl_torch.config import RenderConfig, TrainConfig
+from ngp_pl_torch.datasets.ray_utils import (
+    axisangle_to_R,
+    get_rays,
+    matmul3,
+)
+from ngp_pl_torch.models.ngp import mlp_apply
 from ngp_pl_torch.models.rendering import (
     render_rays_train,
     render_rays_train_csr,
@@ -77,9 +86,14 @@ class Adam:
         self.count = 0
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """Apply one update; returns the device bool `grads_finite`."""
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    def step(self, grads: Sequence[torch.Tensor],
+             finite: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one update; returns the device bool `grads_finite`.  A
+        given `finite` (the flag over several optimizers' gradients, as
+        `optax.multi_transform` under the JAX trainer's skip) replaces this
+        optimizer's own."""
+        if finite is None:
+            finite = grads_finite(grads)
         lr = self.schedule(self.count)
         self.count += 1
         f32 = np.float32
@@ -95,10 +109,63 @@ class Adam:
         return finite
 
 
+def grads_finite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Device bool: every gradient entry is finite."""
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+
+def apply_pose_refinement(poses: torch.Tensor, pose_params: Dict,
+                          img_idxs: torch.Tensor) -> torch.Tensor:
+    """poses (B, 3, 4) base c2w of each ray's image; adds the learned
+    rotation dR (axis-angle) and translation dT of that image
+    (train_step.py:86-91)."""
+    dR = axisangle_to_R(pose_params["dR"][img_idxs])          # (B, 3, 3)
+    R = matmul3(dR, poses[:, :, :3])
+    t = poses[:, :, 3] + pose_params["dT"][img_idxs]
+    return torch.cat([R, t[:, :, None]], dim=-1)
+
+
+class PoseRefinement:
+    """Per-image pose corrections `dR`, `dT` (N_img, 3), zero at the start
+    (train_step.py:72-77), and their optimizer, `optax.adam(pose_lr)`:
+    constant lr, eps 1e-8."""
+
+    def __init__(self, n_images: int, pose_lr: float, device):
+        self.dR = torch.zeros((n_images, 3), device=device,
+                              requires_grad=True)
+        self.dT = torch.zeros((n_images, 3), device=device,
+                              requires_grad=True)
+        self.opt = Adam([self.dR, self.dT], lambda step: pose_lr, eps=1e-8)
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {"dR": self.dR, "dT": self.dT}
+
+    def rays(self, directions: torch.Tensor, poses: torch.Tensor,
+             img_idxs: torch.Tensor):
+        """World rays of camera-frame directions (B, 3) through the refined
+        poses of their images (`poses` (N_img, 3, 4), the base poses):
+        differentiable in dR and dT."""
+        return get_rays(directions, apply_pose_refinement(
+            poses[img_idxs], self.params, img_idxs))
+
+
+def unit_exposure_loss(ngp, unit_exposure_rgb: float) -> torch.Tensor:
+    """The HDR head's anchor (train_step.py:161-170): the tonemappers at
+    log-radiance 0 (unit exposure) should give `unit_exposure_rgb`; (1, 3)
+    per channel, 0.5 * squared error."""
+    zero = torch.zeros((1, 1), device=ngp.hash_table.device)
+    unit_rgb = torch.cat([mlp_apply(ws, zero, torch.sigmoid)
+                          for ws in ngp.tonemapper], dim=-1)
+    return 0.5 * (unit_rgb - unit_exposure_rgb) ** 2
+
+
 def sample_batch(rays_store: torch.Tensor, batch_size: int, strategy: str,
                  generator: torch.Generator):
-    """(img_idxs, pix_idxs, rgb) of one batch drawn on the store's device
-    (train_step.py:278-300)."""
+    """(img_idxs, pix_idxs, payload) of one batch drawn on the store's
+    device (train_step.py:278-302): the payload is the store's rows, rgb in
+    its first three channels and, in a 4-channel store, the exposure in
+    the fourth."""
     n_img, n_pix = rays_store.shape[0], rays_store.shape[1]
     dev = rays_store.device
     if strategy == "same_image":
@@ -114,55 +181,79 @@ def sample_batch(rays_store: torch.Tensor, batch_size: int, strategy: str,
 
 def train_render(ngp, win_rows, rays_o, rays_d, noise, bg, *,
                  tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
-                 chain_length: int, layout: str = "csr", occ_grid=None):
+                 chain_length: int, layout: str = "csr", occ_grid=None,
+                 exposure: Optional[torch.Tensor] = None,
+                 unit_exposure_rgb: float = 0.5):
     """The render of a train step in `layout` and its loss (`loss_fn`,
-    train_step.py:131-163): "csr" (`n_samples` is the pool's multiple of
+    train_step.py:131-170): "csr" (`n_samples` is the pool's multiple of
     the batch), "strided" (S, the width of each ray's row) or "rounds" (S
     per round, 16 and a 512-step chain by default).  Returns the render's
     outputs and a function of the targets that gives the loss.  The march
     reads `win_rows` where the caller's window rule gives them, else
-    `occ_grid`."""
+    `occ_grid`.  The HDR head (`--use_exposure`) takes the rays' exposure
+    (N, 1), if any, and adds the unit-exposure anchor to the loss."""
+    hdr = tcfg.use_exposure
+    exposure = exposure if hdr else None
     if layout == "csr":
         results = render_rays_train_csr(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
             pool_mult=n_samples or None, chain_length=chain_length,
-            occ_grid=occ_grid)
+            occ_grid=occ_grid, exposure=exposure)
     elif layout == "rounds":
         results = render_rays_train_rounds(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
             n_samples=n_samples or 16, chain_length=chain_length or 512,
-            lambda_distortion=tcfg.distortion_loss_w, occ_grid=occ_grid)
+            lambda_distortion=tcfg.distortion_loss_w, occ_grid=occ_grid,
+            exposure=exposure)
     elif layout == "strided":
         results = render_rays_train(
             ngp, win_rows, rays_o, rays_d, noise, bg, rcfg=rcfg,
             n_samples=n_samples or None, chain_length=chain_length,
-            occ_grid=occ_grid)
+            occ_grid=occ_grid, exposure=exposure)
     else:
         raise ValueError(f"unknown train layout {layout!r}")
 
     def loss_of(target):
-        return total_loss(nerf_loss(
+        loss_d = nerf_loss(
             results, target, lambda_opacity=tcfg.opacity_loss_w,
-            lambda_distortion=tcfg.distortion_loss_w))
+            lambda_distortion=tcfg.distortion_loss_w)
+        if hdr:
+            loss_d["unit_exposure"] = unit_exposure_loss(ngp,
+                                                         unit_exposure_rgb)
+        return total_loss(loss_d)
 
     return results, loss_of
 
 
 def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
                *, tcfg: TrainConfig, rcfg: RenderConfig, n_samples: int,
-               chain_length: int, layout: str = "csr", occ_grid=None
+               chain_length: int, layout: str = "csr", occ_grid=None,
+               exposure: Optional[torch.Tensor] = None,
+               unit_exposure_rgb: float = 0.5,
+               pose: Optional[PoseRefinement] = None
                ) -> Dict[str, torch.Tensor]:
     """One train step (`loss_fn` + `_step_core`, train_step.py:106-265)
     from given rays, targets, march noise (B,) and background (3,), in
-    `layout` with its budget `n_samples` (see `train_render`).  Returns
-    device metrics, among them the packed demand vector."""
+    `layout` with its budget `n_samples` (see `train_render`).  With
+    `pose` the rays come from `pose.rays` (autograd records them): its
+    dR and dT take a step of their own Adam beside the net's, one
+    non-finite flag over both groups skips both, and both counts advance.
+    Returns device metrics, among them the packed demand vector."""
     results, loss_of = train_render(
         ngp, win_rows, rays_o, rays_d, noise, bg, tcfg=tcfg, rcfg=rcfg,
         n_samples=n_samples, chain_length=chain_length, layout=layout,
-        occ_grid=occ_grid)
+        occ_grid=occ_grid, exposure=exposure,
+        unit_exposure_rgb=unit_exposure_rgb)
     loss = loss_of(target)
-    grads = torch.autograd.grad(loss, opt.params)
-    finite = opt.step(grads)
+    if pose is None:
+        grads = torch.autograd.grad(loss, opt.params)
+        finite = opt.step(grads)
+    else:
+        n = len(opt.params)
+        grads = torch.autograd.grad(loss, opt.params + pose.opt.params)
+        finite = grads_finite(grads)
+        opt.step(grads[:n], finite)
+        pose.opt.step(grads[n:], finite)
     rgb = results["rgb"].detach()
     rm_counts, vr_counts = results["rm_counts"], results["vr_counts"]
     aux = {

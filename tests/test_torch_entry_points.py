@@ -190,13 +190,20 @@ def test_freeze_buckets_matches_jax():
 
 
 def test_new_flags_match_jax():
-    """--eval_lpips, --val_only, --no_save_test and --ckpt_path: the JAX
-    package's names and defaults."""
-    names = ("eval_lpips", "val_only", "no_save_test", "ckpt_path")
-    for name in names:
+    """--eval_lpips, --val_only, --no_save_test, --ckpt_path,
+    --use_exposure and --optimize_ext (with pose_lr): the JAX package's
+    names and defaults; --use_exposure switches the head to "None" in both
+    model configurations."""
+    names = ("eval_lpips", "val_only", "no_save_test", "ckpt_path",
+             "use_exposure", "optimize_ext")
+    for name in names + ("pose_lr",):
         assert getattr(TrainConfig(), name) == getattr(JaxTrainConfig(), name)
+    for hdr in (False, True):
+        assert (TrainConfig(use_exposure=hdr).ngp_config().rgb_act
+                == JaxTrainConfig(use_exposure=hdr).ngp_config().rgb_act
+                == ("None" if hdr else "Sigmoid"))
     argv = ["--eval_lpips", "--val_only", "--no_save_test", "--ckpt_path",
-            "a.npz"]
+            "a.npz", "--use_exposure", "--optimize_ext"]
     mine, theirs = argparse.ArgumentParser(), argparse.ArgumentParser()
     add_train_args(mine)
     jax_add_train_args(theirs)
@@ -205,6 +212,7 @@ def test_new_flags_match_jax():
     assert [getattr(got, n) for n in names] == [getattr(want, n)
                                                 for n in names]
     assert got.ckpt_path == "a.npz" and got.val_only
+    assert got.use_exposure and got.optimize_ext
 
 
 def test_bench_prints_one_json_line(monkeypatch, capsys):

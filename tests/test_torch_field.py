@@ -120,13 +120,15 @@ def _points(N=512, seed=2):
 
 @pytest.mark.parametrize("F,rtol", [(4, 1e-2), (2, 1e-5)])
 def test_ngp_density_matches_jax(F, rtol):
-    """JAX's CPU density reads the f32 table (XLA path).  F=4: the port
-    reads its f16 copy, sigma within 1% relative.  F=2: the port reads the
-    f32 table too, with the same rounding points (f32 corner weights, bf16
-    weighted rows, bf16 layers), sigma within 1e-5 relative."""
+    """JAX's CPU density, jitted as every caller in the JAX package runs
+    it, reads the f32 table (XLA path).  F=4: the port reads its f16 copy,
+    sigma within 1% relative.  F=2: the port reads the f32 table too, with
+    the same rounding points (f32 corner weights, bf16 weighted rows, bf16
+    operands of the second layer, its output kept in f32 as XLA keeps it
+    under jit), sigma within 1e-5 relative."""
     jngp, params, tngp = _models(F=F)
     x, _ = _points()
-    s_j = np.asarray(jngp.density(params, jnp.asarray(x)))
+    s_j = np.asarray(jax.jit(jngp.density)(params, jnp.asarray(x)))
     with torch.no_grad():
         s_t = tngp.density(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(s_t, s_j, rtol=rtol)
@@ -148,6 +150,33 @@ def test_ngp_forward_matches_jax(F):
                                atol=1e-2)
 
 
+def test_density_keeps_the_second_layer_output_in_f32_as_jitted_jax():
+    """`_mlp_apply` asks for a bf16 output of its bf16 matmul.  Eager JAX
+    rounds it; under jit XLA drops the round trip to bf16 and back (its
+    default excess precision), so the grid refresh, which runs jitted,
+    reads an f32 h.  The port's density keeps that f32 output: at F=2,
+    where both read the f32 table, h within 1e-6 of its max (bf16 rounding
+    would miss by ~2e-3)."""
+    jngp, params, tngp = _models(F=2)
+    x, _ = _points()
+
+    def feat(p, x):
+        return jngp.density(p, x, return_feat=True)[1]
+
+    h_eager = np.asarray(feat(params, jnp.asarray(x)))
+    h_jit = np.asarray(jax.jit(feat)(params, jnp.asarray(x)))
+    as_bf16 = np.asarray(jnp.asarray(h_jit).astype(jnp.bfloat16)
+                         .astype(jnp.float32))
+    assert np.array_equal(h_eager, np.asarray(
+        jnp.asarray(h_eager).astype(jnp.bfloat16).astype(jnp.float32)))
+    assert not np.array_equal(h_jit, as_bf16)
+    with torch.no_grad():
+        s_t, h_t = tngp.density(torch.from_numpy(x), return_feat=True)
+    err = np.abs(h_t.numpy() - h_jit).max() / np.abs(h_jit).max()
+    assert err <= 1e-6, err
+    np.testing.assert_allclose(s_t.numpy(), np.exp(h_jit[:, 0]), rtol=1e-5)
+
+
 @pytest.mark.parametrize("F", [4, 2])
 def test_ngp_params_layout_matches_jax(F):
     jngp, params, tngp = _models(table_scale=1.0, F=F)
@@ -161,8 +190,10 @@ def test_ngp_params_layout_matches_jax(F):
 
 
 def test_ngp_rejects_uncovered_heads():
+    """The heads are the Sigmoid and the HDR ("None") one; the JAX package
+    has no other (it would look for tonemappers it never made)."""
     with pytest.raises(NotImplementedError):
-        NGP(NGPConfig(rgb_act="None"), device="cpu")
+        NGP(NGPConfig(rgb_act="Softplus"), device="cpu")
 
 
 def test_ngp_table16_built_once_and_refreshed_on_update():

@@ -395,13 +395,33 @@ def test_missing_keys_keep_the_template(tmp_path):
     assert dst.optimizer.count == 0 and dst._host_step == 0
 
 
-def test_pose_state_raises(tmp_path):
-    """Pose refinement (`pose[...]` keys) is a later slice: refused, not
-    dropped."""
+def test_pose_state_round_trips(tmp_path):
+    """With --optimize_ext a full checkpoint carries the poses and both
+    optimizers' state (`multi_transform`'s keys): after 4 steps a fresh
+    system loads dR, dT, their moments and count, and the net's state,
+    bit for bit; a checkpoint without pose keys leaves the poses as they
+    are (partial-update load)."""
+    a = _port_system(4, optimize_ext=True, num_epochs=4)
+    a.on_train_start()
+    for _ in range(4):
+        a.step()
+    assert float(a.pose.dR.detach().abs().max()) > 0
     path = os.path.join(tmp_path, "full.npz")
-    _port_system(4).save(path)
+    a.save(path)
     arc = _archive(path)
-    arc["pose['dR']"] = np.zeros((2, 3), np.float32)
+    assert "pose['dR']" in arc and "opt[0].count" not in arc
+    assert int(arc["opt.inner_states['pose'].inner_state[0].count"]) == 4
+    b = _port_system(4, optimize_ext=True, num_epochs=4)
+    b.load(path)
+    for x, y in ((a.pose.dR, b.pose.dR), (a.pose.dT, b.pose.dT),
+                 *zip(a.pose.opt.mu + a.pose.opt.nu,
+                      b.pose.opt.mu + b.pose.opt.nu),
+                 *zip(a.optimizer.mu, b.optimizer.mu)):
+        assert torch.equal(x, y)
+    assert b.pose.opt.count == b.optimizer.count == 4 == b._host_step
+    for k in [k for k in arc if k.startswith("pose")]:
+        del arc[k]
     np.savez(path, **arc)
-    with pytest.raises(NotImplementedError, match="optimize_ext"):
-        _port_system(4).load(path)
+    c = _port_system(4, optimize_ext=True, num_epochs=4)
+    c.load(path)
+    assert float(c.pose.dR.detach().abs().max()) == 0.0

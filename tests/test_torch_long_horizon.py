@@ -73,11 +73,15 @@ LOOP = dict(dataset_name="synthetic", batch_size=N_RAYS, lr=1e-2,
 
 # Tolerances: each is 2-5x the largest reading of the unchanged packages
 # over the 4 blocks and below what each mutant of the loop reads from its
-# first block on (CHANGES.md, PR 11: the lr epoch off by one, an EMA decay
-# of 0.9; Adam's bias correction at `count` divides by zero at the first
-# step).  The density reads trunc_exp of a bf16-rounded output, so one
-# rounding flip in the densest cell moves it by ~6%: its bound only says
-# the grid does not part.
+# first block on (CHANGES.md: the lr epoch off by one, an EMA decay of
+# 0.9; Adam's bias correction at `count` divides by zero at the first
+# step).  The readings depend on the density the grid refresh
+# computes: JAX's runs jitted, where XLA keeps the second sigma layer's
+# output in f32, and the port's does the same (`mlp_apply`); with it
+# rounded to bf16, as eager JAX rounds it, every refreshed cell's density
+# differed and the params read 0.052 (CHANGES.md).  The density's
+# exp still moves by ~6% with one bf16 flip of h1 in the densest cell: its
+# bound only says the grid does not part.
 LOSS_TOL = 2e-3           # max |port - JAX| / max |JAX| of a block's losses
 PARAM_TOL = 0.05          # the same for every parameter
 PARAM_RMS_TOL = 1e-2      # RMS of the difference over RMS of JAX's

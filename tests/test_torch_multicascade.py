@@ -672,3 +672,31 @@ def test_one_scale2_train_step_matches_jax(monkeypatch, bg):
     for a, b in zip([m.numpy() for m in opt.mu + opt.nu],
                     leaves(st_new[0].mu) + leaves(st_new[0].nu)):
         assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+
+
+def test_round_renderer_pads_the_last_chunk_as_jax():
+    """A cascades-3 frame of 2.5 chunks: the last chunk is padded with rays
+    from (1, 1, 1) along (1, 1, 1), which lie inside the scale-2 box and
+    are alive there, as in `make_device_round_renderer`
+    (rendering.py:940-950).  Total samples and rounds equal JAX's; rgb,
+    opacity within 5e-3 and depth within 1e-2, the limits of the one-chunk
+    frame above; the pad rays' outputs are dropped."""
+    jngp, params, tngp = _mc_models()
+    occ = _mc_render_grid()
+    chunk, N = 256, 640
+    rng = np.random.default_rng(3)
+    d = rng.normal(size=(N, 3)) * np.array([0.3, 0.3, 0.1]) + [0, 0, 1.0]
+    rd = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    ro = np.tile(np.array([[0.1, -0.05, -5.0]], np.float32), (N, 1))
+    out_j = jrender.make_device_round_renderer(
+        jngp, JaxRenderConfig(), chunk=chunk)(params, jnp.asarray(occ), ro, rd)
+    renderer = RoundRenderer(tngp, RenderConfig(), chunk=chunk)
+    out_t = renderer.render_image(_t(occ), _t(ro), _t(rd))
+    assert out_t["rgb"].shape == (N, 3) and out_t["opacity"].shape == (N,)
+    np.testing.assert_allclose(out_t["rgb"].numpy(), out_j["rgb"], atol=5e-3)
+    np.testing.assert_allclose(out_t["opacity"].numpy(), out_j["opacity"],
+                               atol=5e-3)
+    np.testing.assert_allclose(out_t["depth"].numpy(), out_j["depth"],
+                               atol=1e-2)
+    assert out_t["total_samples"] == out_j["total_samples"]
+    assert out_t["rounds"] == out_j["rounds"]
