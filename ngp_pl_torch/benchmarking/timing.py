@@ -45,10 +45,17 @@ def time_ms(fn, runs: int = 20, warmup: int = 3, flush: bool = False) -> float:
     return statistics.median(times)
 
 
-def _device_us(fn, runs: int, flush: bool = False) -> dict:
-    """Device microseconds of each kernel, copy and fill, by name, summed
+def _device_us(fn, runs: int, flush: bool = False):
+    """Device microseconds per call of each kernel, copy and fill, by name,
     over `runs` calls under torch.profiler after one warm-up; with `flush`
-    each call after an L2 flush, whose kernel is left out."""
+    each call after an L2 flush, whose kernel is left out.  Also the calls
+    the profile holds a flush of (`runs` without `flush`).
+
+    Late in a long process the profiler on the card has been seen to drop a
+    tenth to two fifths of a window's records, the same share with or without
+    idle time at the window's ends; so a kernel's time per call is the mean
+    of the records the profile holds, times its records per call recorded
+    (rounded), not its sum over `runs`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -60,31 +67,49 @@ def _device_us(fn, runs: int, flush: bool = False) -> dict:
             pre()
             fn()
         torch.cuda.synchronize()
-    us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
-          if ev.device_type == DeviceType.CUDA}
-    flushed = [k for k in us if FLUSH_KERNEL in k]
-    if flush and not flushed:
-        raise RuntimeError("the profile holds no L2 flush")
-    return {k: t for k, t in us.items() if k not in flushed}
+    return per_call_us([(ev.key, ev.count, ev.self_device_time_total)
+                        for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CUDA], runs, flush)
 
 
-def _named_ms(us: dict, names, runs: int) -> float:
+def per_call_us(records, runs: int, flush: bool):
+    """From a profile's (name, records, device microseconds) of `runs`
+    calls: microseconds per call by name, the flush's left out, and the
+    calls the profile holds a flush of (`runs` without `flush`).  A name's
+    records per call are its records over those calls, rounded: a name
+    with fewer records than half the calls is left out."""
+    calls = (sum(n for key, n, _ in records if FLUSH_KERNEL in key)
+             if flush else runs)
+    us = {}
+    for key, n, t in records:
+        per_call = int(n / calls + 0.5) if calls else 0
+        if FLUSH_KERNEL not in key and per_call:
+            us[key] = t / n * per_call
+    return us, calls
+
+
+def _named_ms(us: dict, names) -> float:
     got = [t for key, t in us.items()
            if names is None or any(n in key for n in names)]
     if not got:
         raise RuntimeError(f"the profile holds no kernel named {names}")
-    return sum(got) / 1e3 / runs
+    return sum(got) / 1e3
 
 
 def _profile(fn, names, runs: int, flush: bool, tries: int = 3) -> dict:
     """`_device_us`, profiled again (up to `tries` times in all) when it
-    holds no kernel named in `names`: the profiler has been seen to drop
-    a window's kernel records on the card."""
-    for _ in range(tries - 1):
-        us = _device_us(fn, runs, flush)
-        if any(names is None or any(n in key for n in names) for key in us):
+    holds no kernel named in `names` or the flushes of fewer than half the
+    calls.  Raises if every try held too few flushes."""
+    for _ in range(tries):
+        us, calls = _device_us(fn, runs, flush)
+        named = any(names is None or any(n in key for n in names)
+                    for key in us)
+        if named and 2 * calls >= runs:
             return us
-    return _device_us(fn, runs, flush)
+    if 2 * calls < runs:
+        raise RuntimeError(f"the profile holds the L2 flushes of fewer than "
+                           f"half the {runs} calls in each of {tries} tries")
+    return us
 
 
 def device_ms(fn, names=None, runs: int = 20, flush: bool = False) -> float:
@@ -92,7 +117,7 @@ def device_ms(fn, names=None, runs: int = 20, flush: bool = False) -> float:
     `names` (every kernel, copy and fill on the card if None), over `runs`
     calls under torch.profiler after one warm-up, each after an L2 flush
     with `flush`.  Raises if no such kernel ran."""
-    return _named_ms(_profile(fn, names, runs, flush), names, runs)
+    return _named_ms(_profile(fn, names, runs, flush), names)
 
 
 def device_split_ms(fn, names, runs: int = 20,
@@ -100,4 +125,4 @@ def device_split_ms(fn, names, runs: int = 20,
     """From one profile as `device_ms`'s: the mean device time per call of
     the kernels named in `names`, and of all the call's device work."""
     us = _profile(fn, names, runs, flush)
-    return _named_ms(us, names, runs), _named_ms(us, None, runs)
+    return _named_ms(us, names), _named_ms(us, None)

@@ -85,7 +85,10 @@ class TrainConfig:
     The train layout defaults to "auto", as the JAX package's: CSR through
     grid warmup, then strided or CSR by the demand's shape."""
 
-    dataset_name: str = "synthetic"
+    # dataset (opt.py:6-16); the port's default scene is the procedural one
+    root_dir: str = ""
+    dataset_name: str = "synthetic"  # nerf|nsvf|colmap|nerfpp|rtmv|synthetic
+    split: str = "train"             # train|trainval|trainvaltest
     downsample: float = 1.0
     scale: float = 0.5
     use_exposure: bool = False                 # HDR head (opt.py:18-22)
@@ -120,6 +123,10 @@ class TrainConfig:
     ckpt_path: Optional[str] = None            # full checkpoint to resume
     weight_path: Optional[str] = None          # slim checkpoint
     seed: int = 1337
+    # the ray store stays on the card, and batches are drawn there, when it
+    # fits this budget; otherwise batches are drawn on the host and copied
+    device_dataset: bool = True
+    device_dataset_max_bytes: int = 4 << 30
 
     @property
     def max_steps(self) -> int:
@@ -144,8 +151,16 @@ class TrainConfig:
 def add_eval_args(parser) -> None:
     """argparse surface of the evaluation entry point (reference opt.py)."""
     d = TrainConfig()
+    # the JAX package requires --root_dir; here it may be left out for the
+    # synthetic scene, and a disk loader given none raises
+    parser.add_argument("--root_dir", type=str, default=d.root_dir)
     parser.add_argument("--dataset_name", type=str, default=d.dataset_name,
-                        choices=["synthetic"])
+                        choices=["nerf", "nsvf", "colmap", "nerfpp", "rtmv",
+                                 "synthetic"])
+    parser.add_argument("--split", type=str, default=d.split,
+                        choices=["train", "trainval", "trainvaltest"],
+                        help="the train split (eval: the views that mark "
+                        "the grid when no --weight_path is given)")
     parser.add_argument("--downsample", type=float, default=d.downsample)
     parser.add_argument("--scale", type=float, default=d.scale)
     parser.add_argument("--use_exposure", action="store_true")

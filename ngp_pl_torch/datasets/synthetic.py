@@ -19,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ngp_pl_torch.datasets.base import sample_rays
 from ngp_pl_torch.datasets.ray_utils import get_ray_directions
 from ngp_pl_torch.device import resolve_device
 
@@ -94,11 +95,13 @@ class SyntheticDataset:
 
     `rays` is the ground-truth store (n_img, H*W, 3) on the dataset's
     device, rendered at first use; test views are also rendered one at a
-    time by `image`."""
+    time by `image`.  `root_dir` is accepted and ignored, as the JAX
+    package's dataset does; `sample_batch` draws a batch on the host, as
+    the disk loaders' does."""
 
-    def __init__(self, split="train", downsample=1.0, device="cuda",
-                 img_size=128, n_train=24, n_test=4, seed=0,
-                 world_scale=1.0, bg=1.0):
+    def __init__(self, root_dir="", split="train", downsample=1.0,
+                 device="cuda", img_size=128, n_train=24, n_test=4, seed=0,
+                 world_scale=1.0, bg=1.0, **kwargs):
         self.split = split
         self.world_scale = float(world_scale)
         self.bg = float(bg)
@@ -109,6 +112,10 @@ class SyntheticDataset:
         self.img_wh = (w, h)
         self.directions = get_ray_directions(h, w, self.K)
         self._rays = None
+        self._host_rays = None
+        # set by the training system, as on the disk loaders
+        self.batch_size = 8192
+        self.ray_sampling_strategy = "all_images"
 
         train = split.startswith("train")
         rng = np.random.default_rng(seed if train else seed + 1)
@@ -143,6 +150,14 @@ class SyntheticDataset:
             self._rays = torch.stack([self.image(i)
                                       for i in range(len(self.poses))])
         return self._rays
+
+    def sample_batch(self, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """One training batch drawn on the host from a host copy of the
+        store, as `BaseDataset.sample_batch` draws it."""
+        if self._host_rays is None:
+            self._host_rays = np.ascontiguousarray(self.rays.cpu().numpy())
+        return sample_rays(self._host_rays, self.batch_size,
+                           self.ray_sampling_strategy, rng)
 
     def test_item(self, idx: int) -> Dict:
         return {"pose": self.poses[idx], "rgb": self.image(idx)}

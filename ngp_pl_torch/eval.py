@@ -7,9 +7,14 @@ invisible, then one warmup density refresh over every cell.  With
 --weight_path it loads a slim checkpoint in the JAX package's key format.
 Each test view is rendered through the round renderer and scored with
 PSNR/SSIM against the scene's ground truth; FPS is frames over the fenced
-wall time of the scored renders, after one untimed warm-up frame.
+wall time of the scored renders, after one untimed warm-up frame.  A
+disk scene (`--dataset_name nerf|nsvf|colmap|nerfpp|rtmv --root_dir DIR`)
+is read by the port's loaders, its test split scored and the train split
+(`--split`) marking the grid when no weights are given.
 
     python -m ngp_pl_torch.eval --dataset_name synthetic --downsample 6.25
+    python -m ngp_pl_torch.eval --dataset_name nerf --root_dir DIR \
+        --weight_path ckpts/nerf/exp/epoch=30_slim.npz
 """
 from __future__ import annotations
 
@@ -68,7 +73,8 @@ def evaluate(tcfg: TrainConfig, device="cuda",
     dev = resolve_device(device)
     cfg, rcfg = tcfg.ngp_config(), tcfg.render_config()
     ds_cls = dataset_dict[tcfg.dataset_name]
-    test_ds = ds_cls(split="test", downsample=tcfg.downsample, device=dev)
+    kw = dict(root_dir=tcfg.root_dir, downsample=tcfg.downsample, device=dev)
+    test_ds = ds_cls(split="test", **kw)
 
     ngp = NGP(cfg, seed=tcfg.seed, device=dev)
     if tcfg.weight_path:
@@ -76,8 +82,7 @@ def evaluate(tcfg: TrainConfig, device="cuda",
         ngp.load_params(params)
         occ_grid = torch.from_numpy(occ).to(dev)
     else:
-        train_ds = ds_cls(split="train", downsample=tcfg.downsample,
-                          device=dev)
+        train_ds = ds_cls(split=tcfg.split, **kw)
         state = mark_invisible_cells(
             init_grid_state(cfg, dev), train_ds.K, train_ds.poses, cfg=cfg,
             img_w=train_ds.img_wh[0], img_h=train_ds.img_wh[1])
@@ -109,13 +114,15 @@ def evaluate(tcfg: TrainConfig, device="cuda",
         samples += out["total_samples"]
         rounds += out["rounds"]
         pred = out["rgb"].reshape(h, w, 3)
-        gt = item["rgb"].reshape(h, w, 3)
-        psnrs.append(float(psnr(pred, gt)))
-        ssims.append(float(ssim(pred, gt)))
+        if "rgb" in item:            # a pose-only split renders unscored
+            gt = item["rgb"].reshape(h, w, 3)
+            psnrs.append(float(psnr(pred, gt)))
+            ssims.append(float(ssim(pred, gt)))
         images.append(pred)
         opacities.append(out["opacity"].reshape(h, w))
+    scored = len(psnrs) or math.nan
     return EvalResult(
-        psnr=sum(psnrs) / n, ssim=sum(ssims) / n, fps=n / seconds,
+        psnr=sum(psnrs) / scored, ssim=sum(ssims) / scored, fps=n / seconds,
         samples_per_ray=samples / (n * w * h), rounds_per_frame=rounds / n,
         images=images, opacities=opacities, ngp=ngp, occ_grid=occ_grid)
 

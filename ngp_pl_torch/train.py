@@ -1,10 +1,13 @@
 """Train the field and score the test views (counterpart of train.py;
-reference train.py __main__) on the procedural synthetic scene, in the
-sample layout of `--train_layout` (auto, the default, as the JAX
-package's: CSR through grid warmup, then strided or CSR by the demand;
-or pinned to csr, strided or rounds), with `--distortion_loss_w` for the
-distortion loss.  Runs on the card unless `--device cpu` is given.
+reference train.py __main__) on a scene on disk (`--dataset_name
+nerf|nsvf|colmap|nerfpp|rtmv --root_dir DIR`, read by the port's loaders)
+or on the procedural synthetic scene (the default), in the sample layout
+of `--train_layout` (auto, the default, as the JAX package's: CSR through
+grid warmup, then strided or CSR by the demand; or pinned to csr, strided
+or rounds), with `--distortion_loss_w` for the distortion loss.  Runs on the card unless `--device cpu` is given.
 
+    python -m ngp_pl_torch.train --dataset_name nerf \\
+        --root_dir data/Synthetic_NeRF/Lego --exp_name Lego
     python -m ngp_pl_torch.train --dataset_name synthetic --num_epochs 1 \\
         --iters_per_epoch 512
     python -m ngp_pl_torch.train --train_layout rounds \\
@@ -21,6 +24,10 @@ distortion loss.  Runs on the card unless `--device cpu` is given.
 tonemappers; a 4-channel ray store gives each ray its exposure) and
 `--optimize_ext` per-image pose corrections of the train views, each alone
 or together, in every layout.
+
+The train rays stay on the card when they fit 4 GiB
+(`TrainConfig.device_dataset_max_bytes`); a larger store stays on the host
+and each batch is drawn there and copied.
 
 `--ckpt_path` resumes from a full checkpoint of either package (params,
 Adam state, grid state and step) and trains the steps left of

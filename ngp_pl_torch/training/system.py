@@ -13,6 +13,15 @@ per-ray demand at no more than 1.37x the mean's, else in CSR; "csr",
 "strided" and "rounds" pin one layout.  `freeze_buckets` pins layout,
 budget and chain (benchmarks set it before their timed blocks).
 
+The datasets are built as the JAX package builds them (system.py:62-68):
+the train split `split`, the test split "test", from `root_dir` at
+`downsample`.  The train rays go to the card once when `device_dataset`
+is set and they fit `device_dataset_max_bytes` (system.py:145-153), and
+batches are drawn there; otherwise each batch is drawn on the host by the
+dataset's `sample_batch` from a numpy Generator seeded with `seed`, and
+copied to the card (system.py:274-279, 302-310), so the same seed gives
+the JAX system's batches.
+
 Validation scores the test views and writes them as PNGs with their
 turbo-coloured depth; `save` and `load` write and read full checkpoints
 (params, Adam state, grid state, step and, with `--optimize_ext`, the
@@ -100,10 +109,12 @@ class NeRFSystem:
         self.cfg: NGPConfig = tcfg.ngp_config()
         self.rcfg: RenderConfig = tcfg.render_config()
         ds_cls = dataset_dict[tcfg.dataset_name]
-        self.train_dataset = train_dataset or ds_cls(
-            split="train", downsample=tcfg.downsample, device=self.dev)
-        self.test_dataset = test_dataset or ds_cls(
-            split="test", downsample=tcfg.downsample, device=self.dev)
+        kw = dict(root_dir=tcfg.root_dir, downsample=tcfg.downsample,
+                  device=self.dev)
+        self.train_dataset = train_dataset or ds_cls(split=tcfg.split, **kw)
+        self.train_dataset.batch_size = tcfg.batch_size
+        self.train_dataset.ray_sampling_strategy = tcfg.ray_sampling_strategy
+        self.test_dataset = test_dataset or ds_cls(split="test", **kw)
 
         self.window_march = self._window_ok(self.train_dataset)
         self.test_window = self._window_ok(self.test_dataset)
@@ -131,7 +142,16 @@ class NeRFSystem:
                      if tcfg.optimize_ext else None)
         self.directions = torch.from_numpy(
             self.train_dataset.directions).to(self.dev)
-        self.rays = self.train_dataset.rays.to(self.dev)
+        # the ray store on the card, or None: batches come from the host
+        rays = self.train_dataset.rays
+        nbytes = (rays.nbytes if isinstance(rays, np.ndarray)
+                  else rays.numel() * rays.element_size())
+        self.rays = None
+        if (tcfg.device_dataset and nbytes
+                and nbytes <= tcfg.device_dataset_max_bytes):
+            self.rays = torch.as_tensor(rays, dtype=torch.float32).to(
+                self.dev)
+        self._rng = np.random.default_rng(tcfg.seed)
         # threshold 0.01 * MAX_SAMPLES / sqrt(3) (reference train.py:160)
         self.density_threshold = 0.01 * MAX_SAMPLES / math.sqrt(3.0)
         self.erode = tcfg.dataset_name == "colmap"
@@ -209,11 +229,30 @@ class NeRFSystem:
             warmup=step_i < self.tcfg.grid_warmup_steps, erode=self.erode,
             phase=(step_i // n) % 4, generator=self.generator)
 
+    def sample_batch(self):
+        """(img_idxs, pix_idxs, payload) of one batch on the card: drawn
+        there from the resident store, or on the host by the dataset's
+        `sample_batch` and copied (system.py:274-279).  The payload is the
+        rgb and, where the store has it, the exposure column."""
+        tcfg = self.tcfg
+        if self.rays is not None:
+            return sample_batch(self.rays, tcfg.batch_size,
+                                tcfg.ray_sampling_strategy, self.generator)
+        batch = self.train_dataset.sample_batch(self._rng)
+        cols = [batch["rgb"]] + ([batch["exposure"]] if "exposure" in batch
+                                 else [])
+        host = [torch.from_numpy(batch["img_idxs"]),
+                torch.from_numpy(batch["pix_idxs"]),
+                torch.from_numpy(np.concatenate(cols, axis=1).astype(
+                    np.float32))]
+        if self.dev.type == "cuda":
+            host = [t.pin_memory() for t in host]
+        img, pix, payload = (t.to(self.dev, non_blocking=True) for t in host)
+        return img.long(), pix.long(), payload
+
     def _train_step(self) -> Dict[str, torch.Tensor]:
         tcfg = self.tcfg
-        img, pix, payload = sample_batch(self.rays, tcfg.batch_size,
-                                         tcfg.ray_sampling_strategy,
-                                         self.generator)
+        img, pix, payload = self.sample_batch()
         exposure = (payload[:, 3:4] if tcfg.use_exposure
                     and payload.shape[-1] >= 4 else None)
         if self.pose is not None:
@@ -430,8 +469,11 @@ class NeRFSystem:
         (system.py:548-630).  With `save_images` (by default unless
         `no_save_test`) each view is written to
         results/<dataset_name>/<exp_name>/ as NNN.png and its
-        turbo-coloured depth as NNN_d.png.  LPIPS needs VGG weights, which
-        the port does not have: `eval_lpips` raises before any render."""
+        turbo-coloured depth as NNN_d.png.  A view without colours (a
+        pose-only split such as `test_traj`) is rendered and dumped but not
+        scored (system.py:589); with no view scored the result is empty.
+        LPIPS needs VGG weights, which the port does not have:
+        `eval_lpips` raises before any render."""
         if self.tcfg.eval_lpips:
             raise RuntimeError(
                 "--eval_lpips: the port has no LPIPS-vgg weights and no "
@@ -457,15 +499,18 @@ class NeRFSystem:
                 self.grid_state.occ_grid, dirs,
                 torch.from_numpy(item["pose"]).to(self.dev))
             pred = out["rgb"].reshape(h, w, 3)
-            gt = item["rgb"].reshape(h, w, 3)
-            psnrs.append(float(psnr_fn(pred, gt)))
-            ssims.append(float(ssim_fn(pred, gt)))
+            if "rgb" in item:        # a pose-only split renders unscored
+                gt = item["rgb"].reshape(h, w, 3)
+                psnrs.append(float(psnr_fn(pred, gt)))
+                ssims.append(float(ssim_fn(pred, gt)))
             if save_images:
                 rgb = pred.cpu().numpy()
                 write_png(os.path.join(val_dir, f"{idx:03d}.png"),
                           (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
                 write_png(os.path.join(val_dir, f"{idx:03d}_d.png"),
                           depth2img(out["depth"].reshape(h, w).cpu().numpy()))
+        if not psnrs:
+            return {}
         return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
 
     # -- checkpointing ----------------------------------------------------
