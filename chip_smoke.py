@@ -71,6 +71,27 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            of the loaded system, finite, none skipped
   validate  that system's validate with image dumps of one test view: both
            PNGs there, signature and IHDR size right, PSNR/SSIM
+  mesh     that system's slim checkpoint through `ngp_pl_torch.eval
+           --mesh_path` at 256^3 and sigma level 20: the density query's
+           and the march's fenced seconds, vertex and face counts, the
+           allocator's peak; K1 launched once per 131,072-point call (128),
+           counted over the query and march alone; the mesh against the
+           CPU's march of the same density grid (faces identical, vertices
+           within MESH_VERT_TOL), the grid against the plain versions on
+           the card (h1 within K1_TOL on every call, log sigma within each
+           cell's bf16 flip bound, level flips counted); K1 checked and
+           timed on one chunk of the lattice (`kernels`, input mesh_grid)
+  gui      `ngp_pl_torch.show_gui --screenshot` at 800x800 from the same
+           checkpoint (128 samples, T 1e-2): the PNG's signature and size,
+           K1 and K7 launched, the fenced ms of GUI_FRAMES more frames,
+           samples per ray, rounds; a crop of the frame's rays with the
+           kernels against the plain versions on the card
+  lpips    seeded random LPIPS weights on an 800x800 pair: LPIPS(x, x) = 0,
+           the value against the CPU's, seconds; that system's validate
+           with --eval_lpips and the weights' npz must score lpips
+  interop  Morton codes, bitfields (the trained grid and a four-cascade
+           one), packbits and both multi-object intersections on the card,
+           bit-equal to the CPU
   bench    ngp_pl_torch.benchmarking.bench in this process, 512 warm-up
            steps and 192 timed ones: its JSON record
 All of the train phases (train_reference, train, train_reference again,
@@ -102,8 +123,9 @@ and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
 each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
 train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
 train_reference_l16f2 from the trained state on 2 batches,
-trained_render_l16f2, a profiled block and K3 and K4 on a train step's
-input.
+trained_render_l16f2, a profiled block, K3 and K4 on a train step's
+input, and mesh_l16f2 (the trained field's mesh at 128^3 as `mesh` does
+it, K3 launched 16 times, K3 on a chunk of its lattice).
 Then the flagship's two other heads of training, CSR pinned:
 train_hdr (`--use_exposure`: the HDR head, its tail PyTorch ops as the
 JAX package's XLA tail; the seeded step as train_reference_hdr, once
@@ -132,8 +154,8 @@ byte short), its first 16 batches bit-equal to the host sampler on the
 CPU, the four kernels launched, and the host's ms per step drawing and
 copying a batch.
 Then the card line, the kernels line (the seven kernels of the paths and
-the six K9 variants, with their launches on each path) and, last, the
-result line.  Without a CUDA device,
+the six K9 variants, with their launches on each path, mesh, gui and
+mesh_l16f2 among them) and, last, the result line.  Without a CUDA device,
 or run outside the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -1485,7 +1507,8 @@ def ckpt_roundtrip(torch, res, tcfg):
 
 def train_path(torch, tcfg, card, suffix, trained_batches,
                seeded_tol=STEP_TOL, alone=(), at_step=True,
-               seeded_cpu_tol=None, encode_floor_by_witness=False):
+               seeded_cpu_tol=None, encode_floor_by_witness=False,
+               slim_path=None):
     """The train path of one geometry: the seeded step against the CPU
     (limit `seeded_cpu_tol`, by default `seeded_tol`) and the plain
     versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
@@ -1500,8 +1523,9 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     (`table_grad_inputs.capture`: the CSR pool's positions and gradients,
     ray by ray, zero rows on its unused slots; in the strided layout the
     (N, S) block's, its invalid slots at their ray's origin with zero
-    rows).  Returns the fit's record and the two kernels' records, by
-    key."""
+    rows).  With `slim_path` the trained system's slim checkpoint is
+    written there after the fit.  Returns the fit's record and the two
+    kernels' records, by key."""
     from ngp_pl_torch.benchmarking.table_grad_inputs import capture
     from ngp_pl_torch.benchmarking.train_setup import train_system
 
@@ -1516,6 +1540,8 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     system = train_system(tcfg)
     train = train_fit(torch, system)
     log({"phase": "train" + suffix, "card": card, **train})
+    if slim_path:
+        system.save_slim(slim_path)
     log({"phase": "train_reference" + suffix, "state": "trained",
          **train_reference(torch, system, TRAINED_CPU_TOL,
                            TRAINED_KERNEL_TOL, seeds=trained_batches,
@@ -2077,6 +2103,347 @@ def bench_path(torch):
                 seconds=time.perf_counter() - t0, launches=launches)
 
 
+# The applications on a trained field (the flagship after `resume`'s 512
+# steps, L16F2 after its fit): mesh extraction through the eval entry
+# point, the viewer's screenshot, LPIPS and the reference-layout grid ops.
+MESH_RES = 256                 # the eval CLI's default lattice
+MESH_RES_L16F2 = 128
+MESH_LEVEL = 20.0              # the eval CLI's default sigma level
+MESH_CHUNK = 2 ** 17           # the density query's points per call
+# The card's march of a density grid against the CPU's march of the same
+# grid: the same f32 operations, divisions by tensors (IEEE on both), so
+# faces identical and vertices within one ulp of 0.5 (world units).
+MESH_VERT_TOL = 2.0 ** -24
+# The density grid with the encode kernel against the plain versions on
+# the card.  The kernel's h1 is held to K1_TOL of each call's max |h1| on
+# every chunk of the lattice.  The sigma layer then reads relu(h1) in
+# bf16, and an h1 one f32 ulp away from the plain one can round to the
+# other bf16 neighbour, 2^-7 of itself away: so each cell's log sigma may
+# move by up to 2^-7 sum_i |relu(h1_i) w_i0| (every input flipped), its
+# `flip_bound`, and no further; cells whose side of the level flips lie
+# within that bound of it.
+MESH_FLIP_STEP = 2.0 ** -7
+GUI_FRAMES = 4                 # timed viewer frames after the screenshot
+GUI_CROP = 32                  # the crop held against the plain versions
+LPIPS_SEED = 0
+# LPIPS on the card against the CPU on the same inputs and seeded weights:
+# TF32 is off (`device.resolve_device`), so only the convolutions'
+# summation orders differ, as between XLA and oneDNN on the CPU, where the
+# port reads within 2.8e-6 of JAX (tests/test_torch_lpips.py, limit 1e-4).
+LPIPS_RTOL = 1e-4
+INTEROP_RAYS = 65536
+
+
+def mesh_path(torch, card, slim, geometry, resolution, key, dev="cuda"):
+    """`ngp_pl_torch.eval.main` from the slim checkpoint with --mesh_path
+    at `resolution` and MESH_LEVEL (one 128x128 view scored first).  The
+    counts run from 0 at the start of `write_mesh` (the density query and
+    the march) and are read at its end, beside the allocator's peak there.
+    The card's mesh is held against the CPU's march of the same density
+    grid (faces identical, vertices within MESH_VERT_TOL) and the grid
+    against the plain versions on the card (h1 within K1_TOL on every
+    chunk, log sigma within each cell's `flip_bound`); the encode kernel
+    `key` is checked and
+    timed on one MESH_CHUNK-point chunk of the lattice (`at_mesh_grid`).
+    Returns the phase's record and the kernel's."""
+    from ngp_pl_torch import eval as ev
+    from ngp_pl_torch.utils import mesh as um
+
+    counters = _counters()
+    seen = {}
+    write_mesh = ev.write_mesh
+
+    def counted(ngp, path, res, level):
+        for c in counters.values():
+            c.launches = 0
+        _sync(torch, dev)
+        seen["allocated_before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = write_mesh(ngp, path, res, level)
+        _sync(torch, dev)
+        seen["peak_allocated"] = torch.cuda.max_memory_allocated()
+        seen["launches"] = {k: c.launches for k, c in counters.items()}
+        return out
+
+    ev.write_mesh = counted
+    try:
+        with _build_tmp() as tmp:
+            path = os.path.join(tmp, "mesh.ply")
+            t0 = time.perf_counter()
+            res = ev.main(["--weight_path", slim, "--mesh_path", path,
+                           "--mesh_resolution", str(resolution),
+                           "--mesh_threshold", str(MESH_LEVEL),
+                           "--max_images", "1", "--device", str(dev),
+                           *geometry])
+            seconds = time.perf_counter() - t0
+            file_bytes = os.path.getsize(path)
+            with open(path) as f:
+                head = [next(f).strip() for _ in range(6)]
+    finally:
+        ev.write_mesh = write_mesh
+    m, ngp = res.mesh, res.ngp
+    scale = ngp.cfg.scale
+    values, verts, faces = m["values"], m["verts"], m["faces"]
+    cpu_v, cpu_f = um.marching_tetrahedra(values.cpu(), MESH_LEVEL)
+    cpu_v = um.to_world(cpu_v, resolution, scale)
+    faces_equal = bool(torch.equal(faces.cpu(), cpu_f))
+    vert_err = (float((verts.cpu() - cpu_v).abs().max())
+                if faces_equal and len(cpu_v) else math.inf)
+    pts = um.lattice(resolution, scale, dev)
+    plain = torch.empty_like(values).reshape(-1)
+    bound = torch.empty_like(plain)
+    w0 = ngp.sigma_mlp[1][:, 0].detach().abs()
+    h1_rel = 0.0
+    with torch.no_grad():
+        for i in range(0, len(pts), MESH_CHUNK):
+            p = pts[i:i + MESH_CHUNK]
+            h_k = ngp._h1(p)
+            with plain_on_card(key):
+                h_p = ngp._h1(p)
+                plain[i:i + MESH_CHUNK] = ngp.density(p)
+            h1_rel = max(h1_rel, float((h_k - h_p).abs().max()
+                                       / h_p.abs().max()))
+            bound[i:i + MESH_CHUNK] = MESH_FLIP_STEP * (
+                torch.relu(h_p) * w0).sum(1)
+    plain = plain.reshape(values.shape)
+    bound = bound.reshape(values.shape)
+    dlog = (torch.log(values) - torch.log(plain)).abs()
+    rel = (values - plain).abs() / plain
+    flips = (values > MESH_LEVEL) != (plain > MESH_LEVEL)
+    past_bound = int((dlog > bound + 1e-6).sum())
+    n_calls = -(-resolution ** 3 // MESH_CHUNK)
+    launches = seen["launches"]
+    mid = (n_calls // 2) * MESH_CHUNK
+    kernel = _fwd_record(torch, key, ngp._xn(pts[mid:mid + MESH_CHUNK]),
+                         ngp.encode_table(), ngp.sigma_mlp[0].detach(),
+                         ngp.spec, with_feats=False)
+    kernel["chunk"] = [mid, mid + MESH_CHUNK]
+    rec = dict(
+        card=card, resolution=resolution, level=MESH_LEVEL,
+        verts=len(verts), faces=len(faces), query_s=m["query_s"],
+        march_s=m["march_s"], seconds=seconds, file_bytes=file_bytes,
+        ply_head=head, allocated_before=seen["allocated_before"],
+        peak_allocated=seen["peak_allocated"],
+        peak_over_before=seen["peak_allocated"] - seen["allocated_before"],
+        vs_cpu_march=dict(faces_identical=faces_equal,
+                          verts_max_abs_err=vert_err, tol=MESH_VERT_TOL),
+        vs_plain_on_card=dict(
+            h1_max_rel_err=h1_rel, h1_tol_rel=K1_TOL,
+            sigma_max_rel_err=float(rel.max()),
+            sigma_cells_rel_err_over_1e_5=int((rel > 1e-5).sum()),
+            log_sigma_max_abs_err=float(dlog.max()),
+            flip_bound_max=float(bound.max()),
+            cells_past_flip_bound=past_bound,
+            level_flips=int(flips.sum())),
+        density_calls=n_calls, launches=launches)
+    failed = []
+    if not (faces_equal and vert_err <= MESH_VERT_TOL and len(faces) > 0):
+        failed.append("the card's mesh differs from the CPU's march")
+    if not (h1_rel <= K1_TOL and past_bound == 0):
+        failed.append("the density grid differs from the plain versions")
+    if launches[key] != n_calls or not bool(torch.isfinite(values).all()):
+        failed.append(f"{key} launched {launches[key]} times, want "
+                      f"{n_calls}, or the grid is not finite")
+    if failed:
+        raise AssertionError(f"mesh: {failed}: {rec}")
+    del res, values, plain, bound, dlog, rel, flips, pts
+    torch.cuda.empty_cache()
+    return rec, kernel
+
+
+def gui_path(torch, card, slim, dev="cuda"):
+    """`ngp_pl_torch.show_gui.main --screenshot` at 800x800 from the slim
+    checkpoint, the counts from 0 just before and read just after; then
+    GUI_FRAMES more frames of `render_cam`, each fenced (`dt`); a
+    GUI_CROP^2 crop of the frame's rays rendered by the viewer's renderer
+    with the kernels and with the plain versions on the card, within
+    reference_crop's limit."""
+    import struct
+
+    from ngp_pl_torch import show_gui
+    from ngp_pl_torch.ops.ray_march import segment_march_dmax_ok
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    with _build_tmp() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        gui = show_gui.main(["--ckpt_path", slim, "--downsample", "6.25",
+                             "--screenshot", png, "--device", str(dev)])
+        launches = {k: c.launches for k, c in counters.items()}
+        with open(png, "rb") as f:
+            head = f.read(24)
+        png_bytes = os.path.getsize(png)
+    w, h = gui.W, gui.H
+    first_ms = gui.dt * 1e3
+    frame_ms = []
+    for _ in range(GUI_FRAMES):
+        rgb = gui.render_cam(gui.cam)
+        frame_ms.append(gui.dt * 1e3)
+    rows = torch.arange(h // 2 - GUI_CROP // 2, h // 2 + GUI_CROP // 2)
+    cols = torch.arange(w // 2 - GUI_CROP // 2, w // 2 + GUI_CROP // 2)
+    pix = (rows[:, None] * w + cols).reshape(-1).to(dev)
+    pose = torch.from_numpy(gui.cam.pose).to(dev)
+    rd = gui._dirs[pix] @ pose[:, :3].T
+    ro = pose[:, 3].expand(rd.shape).contiguous()
+    outs = [gui.renderer.render_image(gui.occ_grid, ro, rd)]
+    with plain_on_card("K1", "K7"):
+        outs.append(gui.renderer.render_image(gui.occ_grid, ro, rd))
+    err = {k: float((outs[0][k] - outs[1][k]).abs().max())
+           for k in ("rgb", "opacity")}
+    tol = 5e-3
+    rec = dict(
+        card=card, width=w, height=h, max_samples=128,
+        t_threshold=gui.renderer.rcfg.test_t_threshold,
+        chunk=gui.renderer.chunk, buckets=gui.renderer.buckets,
+        window_rule=bool(segment_march_dmax_ok(
+            gui._dirs.cpu().numpy(), grid_size=gui.ngp.cfg.grid_size,
+            max_samples=128, scale=gui.ngp.cfg.scale)),
+        screenshot_ms=first_ms, frame_ms=frame_ms,
+        frame_ms_mean=sum(frame_ms) / len(frame_ms),
+        samples_per_ray=gui.mean_samples, rounds=gui.rounds,
+        png_bytes=png_bytes, png_signature_ok=head[:8] == PNG_SIGNATURE,
+        png_size=list(struct.unpack(">II", head[16:24])),
+        crop=dict(rays=int(pix.numel()), max_abs_err=err, tol=tol,
+                  samples_kernels=outs[0]["total_samples"],
+                  samples_plain=outs[1]["total_samples"]),
+        launches=launches)
+    if not (rec["png_signature_ok"] and rec["png_size"] == [w, h]
+            and (w, h) == (800, 800) and launches["K1"] > 0
+            and launches["K7"] > 0 and all(v <= tol for v in err.values())
+            and bool(torch.isfinite(torch.from_numpy(rgb)).all())):
+        raise AssertionError(f"gui: {rec}")
+    del gui, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lpips_path(torch, card, system, dev="cuda"):
+    """LPIPS with seeded random weights (`init_random_weights`) on an
+    800x800 pair made from a numpy seed, on the card: LPIPS(x, x) exactly
+    0, the pair's value within LPIPS_RTOL of the CPU's on the same inputs,
+    the fenced seconds of a first and a second call; then the trained
+    system's `validate` with `eval_lpips` and those weights found through
+    NGP_PL_TORCH_LPIPS_NPZ must return `lpips`."""
+    import numpy as np
+
+    from ngp_pl_torch.training import lpips as lp
+    from ngp_pl_torch.training.metrics import LPIPS_ENV, LPIPSHook
+
+    params = lp.init_random_weights(LPIPS_SEED, device=dev)
+    rng = np.random.default_rng(LPIPS_SEED)
+    a = rng.random((800, 800, 3)).astype(np.float32)
+    b = np.clip(a + 0.1 * rng.normal(size=a.shape), 0, 1).astype(np.float32)
+    x, y = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    secs = []
+    for _ in range(2):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        value = float(lp.lpips(params, x, y))
+        secs.append(time.perf_counter() - t0)
+    same = float(lp.lpips(params, x, x))
+    t0 = time.perf_counter()
+    cpu = float(lp.lpips({k: v.cpu() for k, v in params.items()},
+                         x.cpu(), y.cpu()))
+    cpu_s = time.perf_counter() - t0
+    rel = abs(value - cpu) / abs(cpu)
+    saved = os.environ.get(LPIPS_ENV)
+    tcfg, hook = system.tcfg, system.lpips
+    with _build_tmp() as tmp:
+        path = os.path.join(tmp, "lpips.npz")
+        lp.save_weights_npz(path, params)
+        os.environ[LPIPS_ENV] = path
+        try:
+            system.tcfg = tcfg.replace(eval_lpips=True)
+            system.lpips = LPIPSHook(system.dev)
+            scores = system.validate(save_images=False)
+        finally:
+            system.tcfg, system.lpips = tcfg, hook
+            if saved is None:
+                os.environ.pop(LPIPS_ENV)
+            else:
+                os.environ[LPIPS_ENV] = saved
+    rec = dict(card=card, size=[800, 800], seed=LPIPS_SEED, lpips=value,
+               lpips_cpu=cpu, rel_err_vs_cpu=rel, tol_rel=LPIPS_RTOL,
+               lpips_same=same, first_s=secs[0], second_s=secs[1],
+               cpu_s=cpu_s,
+               cudnn_tf32=bool(torch.backends.cudnn.allow_tf32),
+               validate=scores)
+    if not (same == 0.0 and rel <= LPIPS_RTOL and value > 0
+            and math.isfinite(scores.get("lpips", math.nan))):
+        raise AssertionError(f"lpips: {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def interop_path(torch, card, system, dev="cuda"):
+    """The reference-layout grid ops and the multi-object intersections on
+    the card, each bit-equal to the CPU on the same inputs: Morton codes of
+    every cell of a 128^3 grid and of 2^20 random coords below 1024, and
+    their inverses; the trained flagship's grid and a random four-cascade
+    grid as bitfields; packbits/unpackbits of the trained density grid;
+    INTEROP_RAYS rays (zero direction components on some) against 64 boxes
+    and 64 spheres."""
+    import dataclasses
+
+    import numpy as np
+
+    from ngp_pl_torch.config import NGPConfig
+    from ngp_pl_torch.models.occupancy import export_bitfield
+    from ngp_pl_torch.ops import grid_ops, intersection, morton
+
+    rng = np.random.default_rng(0)
+    out = {}
+
+    def same(name, fn, *args):
+        """fn on the card and on the CPU; torch.equal per output."""
+        t0 = time.perf_counter()
+        got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        _sync(torch, dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        out[name] = dict(equal=all(torch.equal(g.cpu(), w)
+                                   for g, w in zip(got, want)),
+                         shape=[list(g.shape) for g in got], card_ms=ms)
+
+    r = torch.arange(128)
+    cells = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                        -1).reshape(-1, 3)
+    coords = torch.from_numpy(rng.integers(0, 1024, (1 << 20, 3)))
+    same("morton3d_grid128", morton.morton3d, cells)
+    same("morton3d_random", morton.morton3d, coords)
+    same("morton3d_invert", morton.morton3d_invert,
+         morton.morton3d(coords))
+    state = system.grid_state
+    same("export_bitfield_trained", lambda occ: export_bitfield(
+        dataclasses.replace(state, occ_grid=occ), system.cfg),
+         state.occ_grid)
+    cfg4 = NGPConfig(scale=4.0)
+    occ4 = torch.from_numpy((rng.random((4, 128, 128, 128)) < 0.3).astype(
+        np.uint8))
+    same("export_bitfield_c4", lambda occ: export_bitfield(
+        dataclasses.replace(state, occ_grid=occ), cfg4), occ4)
+    same("packbits", lambda g: grid_ops.unpackbits(grid_ops.packbits(
+        g, float(state.mean_density))), state.density_grid.reshape(-1))
+    o = torch.from_numpy(rng.uniform(-1.5, 1.5, (INTEROP_RAYS, 3)).astype(
+        np.float32))
+    d = torch.from_numpy(rng.normal(size=(INTEROP_RAYS, 3)).astype(
+        np.float32))
+    d[::7, 0] = 0.0
+    c = torch.from_numpy(rng.uniform(-1, 1, (64, 3)).astype(np.float32))
+    hs = torch.from_numpy(rng.uniform(0.05, 0.4, (64, 3)).astype(
+        np.float32))
+    same("ray_aabb_intersect", lambda *a: intersection.ray_aabb_intersect(
+        *a, 8), o, d, c, hs)
+    same("ray_sphere_intersect",
+         lambda *a: intersection.ray_sphere_intersect(*a, 8), o, d, c, hs)
+    if not all(v["equal"] for v in out.values()):
+        raise AssertionError(f"interop: the card differs from the CPU: {out}")
+    return dict(card=card, **out)
+
+
 def _bound_shares(rec, at="main"):
     """(input, bound_share) of a kernel's record and of the records of its
     other inputs nested in it."""
@@ -2171,6 +2538,23 @@ def main() -> int:
     log({"phase": "resume", "card": card, **resume})
     log({"phase": "validate", "card": card,
          **validate_dumps(torch, system)})
+    # what users do with that trained field: its slim checkpoint through
+    # the mesh and viewer entry points (each counted from 0 at its start),
+    # LPIPS, and the reference-layout grid ops
+    with _build_tmp() as tmp:
+        slim = os.path.join(tmp, "slim.npz")
+        system.save_slim(slim)
+        mesh, checks["K1"]["at_mesh_grid"] = mesh_path(
+            torch, card, slim, [], MESH_RES, "K1")
+        launches["mesh"] = mesh["launches"]
+        log({"phase": "mesh", **mesh})
+        log({"phase": "kernels", "kernel": "K1", "input": "mesh_grid",
+             "card": card, **checks["K1"]["at_mesh_grid"]})
+        gui = gui_path(torch, card, slim)
+        launches["gui"] = gui["launches"]
+        log({"phase": "gui", **gui})
+    log({"phase": "lpips", **lpips_path(torch, card, system)})
+    log({"phase": "interop", **interop_path(torch, card, system)})
     del system
     torch.cuda.empty_cache()
     bench = bench_path(torch)
@@ -2203,13 +2587,23 @@ def main() -> int:
     log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
     del res
     torch.cuda.empty_cache()
-    train, at_step = train_path(
-        torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
-        TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
-        alone=("K3", "K4"))
-    for key, rec in at_step.items():
-        checks[key]["at_train_step"] = rec
-    launches["train_l16f2"] = train["launches"]
+    with _build_tmp() as tmp:
+        slim = os.path.join(tmp, "slim_l16f2.npz")
+        train, at_step = train_path(
+            torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
+            TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
+            alone=("K3", "K4"), slim_path=slim)
+        for key, rec in at_step.items():
+            checks[key]["at_train_step"] = rec
+        launches["train_l16f2"] = train["launches"]
+        # the trained L16F2 field's mesh, K3 on the path
+        mesh, checks["K3"]["at_mesh_grid"] = mesh_path(
+            torch, card, slim, ["--n_levels", "16", "--n_features", "2"],
+            MESH_RES_L16F2, "K3")
+        launches["mesh_l16f2"] = mesh["launches"]
+        log({"phase": "mesh_l16f2", **mesh})
+        log({"phase": "kernels", "kernel": "K3", "input": "mesh_grid",
+             "card": card, **checks["K3"]["at_mesh_grid"]})
 
     # the HDR head and pose refinement on the flagship, counted the same way
     launches["train_hdr"] = hdr_path(torch, card)["launches"]
@@ -2278,6 +2672,7 @@ def main() -> int:
                 "library_device_ms", "input", "at_runs",
                 "at_train_pool", "at_train_step",
                 "at_train_step_strided", "at_scale4", "at_train_step_mc",
+                "at_mesh_grid",
                 "max_abs_err_vs_float64_sums", "max_rel_err_vs_float64_sums",
                 "tol_rel_vs_float64_sums") if f in k}})
     # K9 on its own path, the bench: times, bounds and launches from the

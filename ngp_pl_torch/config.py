@@ -116,7 +116,7 @@ class TrainConfig:
     train_layout: str = "auto"                 # auto|strided|csr|rounds
     log_every: int = 100
     # validation (opt.py:54-60)
-    eval_lpips: bool = False    # no LPIPS weights in the port: raises
+    eval_lpips: bool = False    # raises without LPIPS weights (LPIPSHook)
     val_only: bool = False
     no_save_test: bool = False
     exp_name: str = "exp"

@@ -1,5 +1,5 @@
-"""Render and score the test views (counterpart of eval.py; reference
-test.ipynb), without mesh export.
+"""Render and score the test views and, with --mesh_path, extract the
+density field's isosurface (counterpart of eval.py; reference test.ipynb).
 
 Without --weight_path it builds the seeded model and its occupancy grid the
 way a fresh training system does: cells no train camera sees are marked
@@ -7,7 +7,11 @@ invisible, then one warmup density refresh over every cell.  With
 --weight_path it loads a slim checkpoint in the JAX package's key format.
 Each test view is rendered through the round renderer and scored with
 PSNR/SSIM against the scene's ground truth; FPS is frames over the fenced
-wall time of the scored renders, after one untimed warm-up frame.  A
+wall time of the scored renders, after one untimed warm-up frame.  With
+--mesh_path the density is queried on a --mesh_resolution^3 lattice over
+the scene box (`NGP.density`, so K1, or K3 at F=2, on the card) and the
+surface at sigma = --mesh_threshold is written as OBJ (a path ending in
+.obj) or PLY by `utils/mesh.py`'s marching tetrahedra.  A
 disk scene (`--dataset_name nerf|nsvf|colmap|nerfpp|rtmv --root_dir DIR`)
 is read by the port's loaders, its test split scored and the train split
 (`--split`) marking the grid when no weights are given.
@@ -15,6 +19,9 @@ is read by the port's loaders, its test split scored and the train split
     python -m ngp_pl_torch.eval --dataset_name synthetic --downsample 6.25
     python -m ngp_pl_torch.eval --dataset_name nerf --root_dir DIR \
         --weight_path ckpts/nerf/exp/epoch=30_slim.npz
+    python -m ngp_pl_torch.eval --weight_path \
+        ckpts/synthetic/exp/epoch=30_slim.npz --mesh_path mesh.ply \
+        --mesh_resolution 256
 """
 from __future__ import annotations
 
@@ -22,7 +29,7 @@ import argparse
 import math
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -44,6 +51,13 @@ from ngp_pl_torch.models.rendering import RoundRenderer
 from ngp_pl_torch.ops.ray_march import window_march_mc_ok
 from ngp_pl_torch.training.checkpoint import load_slim_checkpoint
 from ngp_pl_torch.training.metrics import psnr, ssim
+from ngp_pl_torch.utils.mesh import (
+    density_grid_query,
+    marching_tetrahedra,
+    save_mesh_obj,
+    save_mesh_ply,
+    to_world,
+)
 
 # occupancy threshold 0.01 * MAX_SAMPLES / sqrt(3) (reference train.py:160)
 DENSITY_THRESHOLD = 0.01 * MAX_SAMPLES / math.sqrt(3.0)
@@ -60,6 +74,7 @@ class EvalResult:
     opacities: List[torch.Tensor]   # (H, W) per view
     ngp: NGP
     occ_grid: torch.Tensor
+    mesh: Optional[Dict] = None     # `write_mesh`'s record, --mesh_path
 
 
 def _sync(dev: torch.device) -> None:
@@ -127,12 +142,41 @@ def evaluate(tcfg: TrainConfig, device="cuda",
         images=images, opacities=opacities, ngp=ngp, occ_grid=occ_grid)
 
 
+@torch.no_grad()
+def write_mesh(ngp: NGP, path: str, resolution: int, level: float) -> Dict:
+    """The isosurface of `ngp`'s density at `level` on a resolution^3
+    lattice over [-scale, scale]^3, written to `path` (OBJ if it ends in
+    .obj, else PLY).  Returns the density grid, the world-space verts and
+    faces (on the model's device) and the fenced seconds of the density
+    query and of the march."""
+    dev = ngp.hash_table.device
+    scale = ngp.cfg.scale
+    _sync(dev)
+    t0 = time.perf_counter()
+    values = density_grid_query(ngp.density, resolution, scale, device=dev)
+    _sync(dev)
+    t1 = time.perf_counter()
+    verts, faces = marching_tetrahedra(values, level)
+    verts = to_world(verts, resolution, scale)
+    _sync(dev)
+    t2 = time.perf_counter()
+    save = save_mesh_obj if path.endswith(".obj") else save_mesh_ply
+    save(path, verts, faces)
+    return dict(values=values, verts=verts, faces=faces, query_s=t1 - t0,
+                march_s=t2 - t1)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     add_eval_args(parser)
     parser.add_argument("--max_images", type=int, default=None,
                         help="score only the first N test views")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--mesh_path", type=str, default=None,
+                        help="write an OBJ/PLY isosurface mesh here")
+    parser.add_argument("--mesh_resolution", type=int, default=256)
+    parser.add_argument("--mesh_threshold", type=float, default=20.0,
+                        help="sigma iso level (test.ipynb uses ~20)")
     args = parser.parse_args(argv)
     tcfg = config_from_args(args)
     res = evaluate(tcfg, device=args.device, max_images=args.max_images)
@@ -141,6 +185,13 @@ def main(argv=None):
     print(f"render: {res.fps:.2f} FPS at {w}x{h} "
           f"({res.samples_per_ray:.1f} samples/ray, "
           f"{res.rounds_per_frame:.1f} rounds/frame)")
+    if args.mesh_path:
+        res.mesh = write_mesh(res.ngp, args.mesh_path, args.mesh_resolution,
+                              args.mesh_threshold)
+        m = res.mesh
+        print(f"mesh: {len(m['verts'])} verts {len(m['faces'])} faces "
+              f"-> {args.mesh_path} (density query {m['query_s']:.2f} s, "
+              f"march {m['march_s']:.2f} s)")
     return res
 
 

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 
 from ngp_pl_torch.config import NEAR_DISTANCE, NGPConfig
+from ngp_pl_torch.ops.grid_ops import packbits
+from ngp_pl_torch.ops.morton import morton3d
 from ngp_pl_torch.ops.ray_march import (
     WIN_B,
     WIN_WORDS,
@@ -176,3 +178,21 @@ def update_density_grid(ngp, state: OccupancyGridState, density_threshold,
                               count_grid=state.count_grid, occ_grid=occ,
                               mean_density=mean_density,
                               win_rows=occupancy_windows(occ))
+
+
+def export_bitfield(state: OccupancyGridState, cfg: NGPConfig) -> torch.Tensor:
+    """The occupancy grid as the reference stores it (networks.py:28-29):
+    a uint8 bitfield of C * G^3 / 8 bytes, each cascade's cells in Morton
+    order, the first cell in the lowest bit
+    (ngp_pl_tpu/models/occupancy.py:257-272).  As JAX's scatter does, a
+    cell whose code falls past G^3 (G not a power of two) is dropped."""
+    G, C = cfg.grid_size, cfg.cascades
+    dev = state.occ_grid.device
+    m = morton3d(_coords_from_flat(torch.arange(G ** 3, device=dev), G))
+    keep = m < G ** 3
+    out = []
+    for c in range(C):
+        morton_occ = torch.zeros(G ** 3, dtype=torch.uint8, device=dev)
+        morton_occ[m[keep]] = state.occ_grid[c].reshape(-1)[keep]
+        out.append(packbits(morton_occ.to(torch.float32), 0.5))
+    return torch.cat(out)

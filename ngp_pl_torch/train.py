@@ -29,6 +29,9 @@ The train rays stay on the card when they fit 4 GiB
 (`TrainConfig.device_dataset_max_bytes`); a larger store stays on the host
 and each batch is drawn there and copied.
 
+`--profile_dir DIR` traces the fit's steps 64-96 with torch.profiler into
+DIR/trace_steps64-96.json (Chrome trace format, for viewing).
+
 `--ckpt_path` resumes from a full checkpoint of either package (params,
 Adam state, grid state and step) and trains the steps left of
 num_epochs x iters_per_epoch; `--val_only` skips training.  After training
@@ -36,7 +39,11 @@ it writes a full and a slim checkpoint in the JAX key format to
 ckpts/<dataset>/<exp_name>/epoch=<num_epochs>.npz and
 epoch=<num_epochs>_slim.npz (`--weight_path` loads the slim kind).  It
 then scores the test views and, unless `--no_save_test`, writes them to
-results/<dataset>/<exp_name>/NNN.png and their depth to NNN_d.png.
+results/<dataset>/<exp_name>/NNN.png and their depth to NNN_d.png; on an
+NSVF Synthetic scene (`--dataset_name nsvf`, "Synthetic" in --root_dir)
+those are then assembled into rgb.gif and depth.gif there, as the JAX
+package's GIF fallback for its mp4s (reference train.py:284-293;
+`utils/video.py`).
 """
 from __future__ import annotations
 
@@ -45,7 +52,21 @@ import os
 import time
 
 from ngp_pl_torch.config import add_train_args, config_from_args
+from ngp_pl_torch.datasets.color_utils import read_png
 from ngp_pl_torch.training.system import NeRFSystem
+from ngp_pl_torch.utils.video import write_video
+
+
+def assemble_videos(val_dir: str) -> list:
+    """rgb and depth videos of the validation dumps in `val_dir`, in file
+    order (train.py:64-83); returns the paths written."""
+    names = sorted(f for f in os.listdir(val_dir) if f.endswith(".png"))
+    rgb = [read_png(os.path.join(val_dir, f)) for f in names
+           if not f.endswith("_d.png")]
+    dep = [read_png(os.path.join(val_dir, f)) for f in names
+           if f.endswith("_d.png")]
+    return [write_video(os.path.join(val_dir, f"{kind}.mp4"), frames, fps=30)
+            for kind, frames in (("rgb", rgb), ("depth", dep)) if frames]
 
 
 def main(argv=None):
@@ -54,6 +75,9 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--max_images", type=int, default=None,
                         help="score only the first N test views")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 64-96 "
+                        "here (Chrome trace format)")
     args = parser.parse_args(argv)
     tcfg = config_from_args(args)
     system = NeRFSystem(tcfg, device=args.device)
@@ -61,7 +85,8 @@ def main(argv=None):
         system.load(tcfg.ckpt_path)
     if not tcfg.val_only:
         t0 = time.time()
-        system.fit(max_steps=tcfg.max_steps - system._host_step)
+        system.fit(max_steps=tcfg.max_steps - system._host_step,
+                   profile_dir=args.profile_dir)
         print(f"training took {time.time() - t0:.1f}s")
         ckpt_dir = os.path.join("ckpts", tcfg.dataset_name, tcfg.exp_name)
         os.makedirs(ckpt_dir, exist_ok=True)
@@ -70,6 +95,11 @@ def main(argv=None):
             os.path.join(ckpt_dir, f"epoch={tcfg.num_epochs}_slim.npz"))
     scores = system.validate(max_images=args.max_images)
     print("test: " + " ".join(f"{k}={v:.4f}" for k, v in scores.items()))
+    if (not tcfg.no_save_test and tcfg.dataset_name == "nsvf"
+            and "Synthetic" in (tcfg.root_dir or "")):
+        for path in assemble_videos(
+                os.path.join("results", tcfg.dataset_name, tcfg.exp_name)):
+            print(f"wrote {path}")
     return system, scores
 
 

@@ -1,11 +1,16 @@
-"""PSNR and SSIM (counterpart of ngp_pl_tpu/training/metrics.py:17-60).
+"""PSNR, SSIM and the LPIPS hook (counterpart of
+ngp_pl_tpu/training/metrics.py).
 
 SSIM is the Gaussian-window (11, sigma 1.5) form with 'valid' borders, as
 torchmetrics' defaults.  Its filter is a depthwise convolution: on the card
 it runs in float32 only because `device.resolve_device` turns cuDNN's TF32
-off.
+off.  LPIPS is `training/lpips.py`, behind `LPIPSHook`, which finds its
+weights.
 """
 from __future__ import annotations
+
+import os
+import tempfile
 
 import numpy as np
 import torch
@@ -47,3 +52,47 @@ def ssim(img0, img1, max_val=1.0):
     num = (2 * mu0 * mu1 + c1) * (2 * s01 + c2)
     den = (mu0 * mu0 + mu1 * mu1 + c1) * (s00 + s11 + c2)
     return torch.mean(num / den)
+
+
+# the npz of LPIPS weights (the JAX package reads NGP_PL_TPU_LPIPS_NPZ;
+# one file in the shared naming scheme serves both)
+LPIPS_ENV = "NGP_PL_TORCH_LPIPS_NPZ"
+
+
+class LPIPSHook:
+    """Lazy LPIPS(vgg) evaluator on `device` (metrics.py:63-111).  Weights
+    are looked for once, in order: the npz named by NGP_PL_TORCH_LPIPS_NPZ;
+    then ngp_pl_torch_lpips_vgg.npz in the temporary directory, converted
+    there from the `lpips` package's pretrained network if that package is
+    installed.  Without either the hook is unavailable."""
+
+    def __init__(self, device="cpu"):
+        self.device = device
+        self.params = None
+        self._tried = False
+
+    @property
+    def available(self) -> bool:
+        if not self._tried:
+            self._tried = True
+            from ngp_pl_torch.training import lpips
+
+            path = os.environ.get(LPIPS_ENV)
+            if not (path and os.path.exists(path)):
+                path = os.path.join(tempfile.gettempdir(),
+                                    "ngp_pl_torch_lpips_vgg.npz")
+                if not os.path.exists(path):
+                    lpips.export_from_torch_lpips(path)
+            if os.path.exists(path):
+                self.params = lpips.load_weights_npz(path, self.device)
+        return self.params is not None
+
+    def __call__(self, pred, gt):
+        """LPIPS of two (H, W, 3) images in [0, 1], or None without
+        weights."""
+        if not self.available:
+            return None
+        from ngp_pl_torch.training import lpips
+
+        return float(lpips.lpips(self.params, pred.to(torch.float32),
+                                 gt.to(torch.float32)))

@@ -83,6 +83,7 @@ from ngp_pl_torch.training.checkpoint import (
     save_slim_checkpoint,
     train_state_numpy,
 )
+from ngp_pl_torch.training.metrics import LPIPS_ENV, LPIPSHook
 from ngp_pl_torch.training.metrics import psnr as psnr_fn
 from ngp_pl_torch.training.metrics import ssim as ssim_fn
 from ngp_pl_torch.training.train_step import (
@@ -96,6 +97,50 @@ from ngp_pl_torch.training.train_step import (
 from ngp_pl_torch.utils.images import depth2img, write_png
 
 LAYOUTS = ("auto", "csr", "strided", "rounds")
+TRACE_FILE = "trace_steps64-96.json"
+
+
+class StepTrace:
+    """torch.profiler over steps [64, 96) of a fit (system.py:484-505): it
+    starts before the call that begins at step 64 and stops, after a
+    fence, at the end of the call that reaches step 96, or at the fit's
+    end; each call inside is a range named by its steps ("steps 64-80").
+    The Chrome trace goes to <out_dir>/trace_steps64-96.json, for viewing:
+    late in a long process the profiler drops device records, so no number
+    is read from it."""
+
+    START, STOP = 64, 96
+
+    def __init__(self, out_dir: str, dev: torch.device):
+        self.out_dir, self.dev = out_dir, dev
+        self.prof = None
+
+    def run(self, fn, done: int, n: int):
+        """`fn()`, the fit's call that runs steps [done, done + n)."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        if done == self.START:
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.dev.type == "cuda" else [])
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        if self.prof is None:
+            return fn()
+        with record_function(f"steps {done}-{done + n}"):
+            out = fn()
+        if done + n >= self.STOP:
+            self.stop()
+        return out
+
+    def stop(self):
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        prof, self.prof = self.prof, None
+        prof.__exit__(None, None, None)
+        os.makedirs(self.out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.out_dir, TRACE_FILE))
 
 
 class NeRFSystem:
@@ -159,6 +204,7 @@ class NeRFSystem:
             tcfg.seed)
         self.history: list = []
         self._host_step = 0
+        self.lpips = LPIPSHook(self.dev)
 
         # demand controller (system.py:164-250)
         self._pool_buckets = (8, 16, 24, 32, 40, 48, 56, 64)
@@ -406,31 +452,33 @@ class NeRFSystem:
             self._pool_mult = self._rounds_buckets[-1]
 
     def fit(self, max_steps: Optional[int] = None,
-            log_every: Optional[int] = None, quiet: bool = False):
+            log_every: Optional[int] = None, quiet: bool = False,
+            profile_dir: Optional[str] = None):
         """Train `max_steps` steps (system.py:475-522): 16-step blocks when
         the step counts allow, single steps otherwise.  Logs the JAX
-        trainer's line plus the skipped-step count."""
+        trainer's line plus the skipped-step count.  With `profile_dir`
+        the fit's steps 64-96 run under torch.profiler and its Chrome trace
+        is written there (`TRACE_FILE`; `StepTrace`)."""
         max_steps = max_steps or self.tcfg.max_steps
         log_every = log_every or self.tcfg.log_every
         self.on_train_start()
         t0 = time.time()
         nb = self.tcfg.grid_update_interval
         skipped = torch.zeros((), dtype=torch.int32, device=self.dev)
-        if (self._host_step % nb == 0 and max_steps % nb == 0
-                and log_every % nb == 0):
-            for i in range(max_steps // nb):
-                metrics = self.step_block()
+        blocks = (self._host_step % nb == 0 and max_steps % nb == 0
+                  and log_every % nb == 0)
+        n, run = (nb, self.step_block) if blocks else (1, self.step)
+        trace = StepTrace(profile_dir, self.dev) if profile_dir else None
+        try:
+            for i in range(max_steps // n):
+                metrics = trace.run(run, i * n, n) if trace else run()
                 skipped = skipped + metrics["n_skipped"]
                 self._note_layout(quiet)
-                if ((i + 1) * nb) % log_every == 0 or i == 0:
-                    self._log_fit(metrics, (i + 1) * nb, t0, quiet, skipped)
-            return self.history
-        for i in range(max_steps):
-            metrics = self.step()
-            skipped = skipped + metrics["n_skipped"]
-            self._note_layout(quiet)
-            if (i + 1) % log_every == 0 or i == 0:
-                self._log_fit(metrics, i + 1, t0, quiet, skipped)
+                if ((i + 1) * n) % log_every == 0 or i == 0:
+                    self._log_fit(metrics, (i + 1) * n, t0, quiet, skipped)
+        finally:
+            if trace:
+                trace.stop()
         return self.history
 
     def _note_layout(self, quiet: bool):
@@ -465,20 +513,23 @@ class NeRFSystem:
     @torch.no_grad()
     def validate(self, save_images: Optional[bool] = None,
                  max_images: Optional[int] = None) -> Dict[str, float]:
-        """PSNR/SSIM of the test views through the round renderer
+        """PSNR/SSIM (and LPIPS) of the test views through the round renderer
         (system.py:548-630).  With `save_images` (by default unless
         `no_save_test`) each view is written to
         results/<dataset_name>/<exp_name>/ as NNN.png and its
         turbo-coloured depth as NNN_d.png.  A view without colours (a
         pose-only split such as `test_traj`) is rendered and dumped but not
         scored (system.py:589); with no view scored the result is empty.
-        LPIPS needs VGG weights, which the port does not have:
-        `eval_lpips` raises before any render."""
-        if self.tcfg.eval_lpips:
+        With `eval_lpips` each scored view's LPIPS(vgg) is averaged into
+        "lpips" (system.py:593-629); without weights (`LPIPSHook`) it
+        raises before any render."""
+        if self.tcfg.eval_lpips and not self.lpips.available:
             raise RuntimeError(
-                "--eval_lpips: the port has no LPIPS-vgg weights and no "
-                "LPIPS network, so it cannot score LPIPS; run without "
-                "--eval_lpips to score PSNR and SSIM only")
+                f"--eval_lpips: no LPIPS-vgg weights were found. Point "
+                f"{LPIPS_ENV} at an npz in the LPIPS naming scheme "
+                f"(`python -m ngp_pl_torch.training.lpips export FILE` "
+                f"writes one from the lpips package's pretrained network), "
+                f"or run without --eval_lpips to score PSNR and SSIM only")
         if save_images is None:
             save_images = not self.tcfg.no_save_test
         val_dir = os.path.join("results", self.tcfg.dataset_name,
@@ -492,7 +543,7 @@ class NeRFSystem:
         n = len(ds.poses)
         if max_images:
             n = min(n, max_images)
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
         for idx in range(n):
             item = ds.test_item(idx)
             out = renderer.render_pose(
@@ -503,6 +554,8 @@ class NeRFSystem:
                 gt = item["rgb"].reshape(h, w, 3)
                 psnrs.append(float(psnr_fn(pred, gt)))
                 ssims.append(float(ssim_fn(pred, gt)))
+                if self.tcfg.eval_lpips:
+                    lpipss.append(self.lpips(pred, gt))
             if save_images:
                 rgb = pred.cpu().numpy()
                 write_png(os.path.join(val_dir, f"{idx:03d}.png"),
@@ -511,7 +564,10 @@ class NeRFSystem:
                           depth2img(out["depth"].reshape(h, w).cpu().numpy()))
         if not psnrs:
             return {}
-        return {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+        out = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+        if lpipss:
+            out["lpips"] = float(np.mean(lpipss))
+        return out
 
     # -- checkpointing ----------------------------------------------------
     def _state_numpy(self) -> Dict:
