@@ -69,6 +69,10 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            one train step on one explicit batch of both within
            TRAINED_KERNEL_TOL with an identical pool, then 256 more steps
            of the loaded system, finite, none skipped
+  tensorboard  the loaded system's fit's event file, read with this
+           script's own CRC32C and protobuf reader: every record's CRCs,
+           the first record's file_version, the four scalars at each
+           logged step equal to the fit's history as float32
   validate  that system's validate with image dumps of one test view: both
            PNGs there, signature and IHDR size right, PSNR/SSIM
   mesh     that system's slim checkpoint through `ngp_pl_torch.eval
@@ -92,6 +96,18 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
   interop  Morton codes, bitfields (the trained grid and a four-cascade
            one), packbits and both multi-object intersections on the card,
            bit-equal to the CPU
+  ddp      data parallelism on this card: how far 2 and 4 ranks' own CSR
+           pools and rounds slots part from the global ones on the seeded
+           step; the flagship's 256 steps in a process group of one NCCL
+           rank, whose explicit-batch step must equal the same step
+           outside any group within TRAINED_KERNEL_TOL; two gloo ranks
+           spawned on this card from that state: the step over their
+           shards within TRAINED_KERNEL_TOL at a pool with room (read at
+           the controller's budget too), the 2-view validate within 1e-6,
+           then 64 steps after which the ranks hold equal parameters,
+           moments and grids (and the count of those with a full pool);
+           each rank launches K1, K2+K5, K7 and K8; the two ranks' step
+           at the controller's budget from the state at step 512, read
   bench    ngp_pl_torch.benchmarking.bench in this process, 512 warm-up
            steps and 192 timed ones: its JSON record
 All of the train phases (train_reference, train, train_reference again,
@@ -1829,7 +1845,7 @@ def disk_path(torch, card, root):
             "--dataset_name", "nerf", "--root_dir", root,
             "--train_layout", "csr", "--num_epochs", "1",
             "--iters_per_epoch", str(DISK_STEPS), "--max_images", "2",
-            "--exp_name", "disk"])
+            "--exp_name", "disk", "--num_devices", "1"])
         dumps = sorted(os.listdir(os.path.join("results", "nerf", "disk")))
         seconds = time.perf_counter() - t0
         served = teval.main([
@@ -1999,8 +2015,9 @@ def resume_path(torch):
     agree between the two within TRAINED_KERNEL_TOL (K2+K5's reductions
     are not order-deterministic) with an identical pool; the loaded system
     then fits RESUME_STEPS more steps, finite, with no skipped step and
-    every kernel of the path launched.  Returns (the loaded system, its
-    record); the counts run from 0 at the start of the phase."""
+    every kernel of the path launched.  Returns (the loaded system, the
+    `tensorboard` phase's record of that fit's event file, its record);
+    the counts run from 0 at the start of the phase."""
     from ngp_pl_torch.benchmarking.train_setup import train_config, train_system
 
     counters = _counters()
@@ -2034,8 +2051,15 @@ def resume_path(torch):
         raise AssertionError(f"the loaded system's step differs: {step_err}")
     restart = dict(layout=loaded.layout, pool_mult=loaded._pool_mult,
                    chain_length=loaded.chain_length)
-    hist = loaded.fit(max_steps=RESUME_STEPS, log_every=128, quiet=True)
-    _sync(torch, loaded.dev)
+    # the fit's TensorBoard record goes to logs/<dataset>/<exp> under a
+    # directory of its own, and is read back by `tensorboard_record`
+    with _build_tmp() as tmp, contextlib.chdir(tmp):
+        hist = loaded.fit(max_steps=RESUME_STEPS, log_every=128, quiet=True)
+        _sync(torch, loaded.dev)
+        loaded._writer.close()
+        tb = tensorboard_record(os.path.join(
+            "logs", loaded.tcfg.dataset_name, loaded.tcfg.exp_name), hist,
+            loaded.tcfg.batch_size)
     launches = {k: c.launches for k, c in counters.items()}
     last = hist[-1]
     if not (all(math.isfinite(h["loss"]) for h in hist)
@@ -2045,7 +2069,7 @@ def resume_path(torch):
         raise AssertionError(f"the resumed fit failed: {hist}, {launches}")
     del saved
     torch.cuda.empty_cache()
-    return loaded, dict(
+    return loaded, tb, dict(
         steps_saved=RESUME_STEPS, checkpoint_bytes=size, equal=equal,
         step_vs_saved=step_err, tol=TRAINED_KERNEL_TOL,
         controller_after_load=restart,
@@ -2053,6 +2077,256 @@ def resume_path(torch):
         psnr={h["step"]: h["psnr"] for h in hist},
         skipped=last["skipped_total"], steps=loaded._host_step,
         seconds=time.perf_counter() - t0, launches=launches)
+
+
+# The event file of a fit (ngp_pl_torch/utils/events.py), read here with a
+# CRC32C of this script's own (bit by bit, the Castagnoli polynomial) and a
+# protobuf reader of the fields the writer uses.
+TB_TAGS = ("train/loss", "train/psnr", "train/rm_s", "train/vr_s")
+
+
+def _crc32c_bits(data: bytes) -> int:
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def _masked(c: int) -> int:
+    return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def _varint(buf: bytes, i: int):
+    v, shift = 0, 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return v, i
+
+
+def _proto_fields(buf: bytes) -> dict:
+    """field -> its values in a protobuf message: varints as ints, fixed64
+    and fixed32 and length-delimited fields as bytes."""
+    out, i = {}, 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        wire = key & 7
+        if wire == 0:
+            v, i = _varint(buf, i)
+        elif wire in (1, 5):
+            n = 8 if wire == 1 else 4
+            v, i = buf[i:i + n], i + n
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            v, i = buf[i:i + n], i + n
+        else:
+            raise AssertionError(f"wire type {wire} in an event record")
+        out.setdefault(key >> 3, []).append(v)
+    if i != len(buf):
+        raise AssertionError("a field runs past its message")
+    return out
+
+
+def tensorboard_record(logdir, hist, batch_size):
+    """The one event file in `logdir`: every record's length and data
+    CRCs, the first record's file_version, and the four scalars of each
+    logged step, equal to `hist` as float32."""
+    import struct
+
+    import numpy as np
+
+    files = os.listdir(logdir)
+    if len(files) != 1 or not files[0].startswith("events.out.tfevents."):
+        raise AssertionError(f"{logdir}: {files}")
+    with open(os.path.join(logdir, files[0]), "rb") as f:
+        data = f.read()
+    records, at = [], 0
+    while at < len(data):
+        head = data[at:at + 8]
+        (n,) = struct.unpack("<Q", head)
+        (crc_len,) = struct.unpack("<I", data[at + 8:at + 12])
+        body = data[at + 12:at + 12 + n]
+        (crc_body,) = struct.unpack("<I", data[at + 12 + n:at + 16 + n])
+        if (crc_len != _masked(_crc32c_bits(head)) or len(body) != n
+                or crc_body != _masked(_crc32c_bits(body))):
+            raise AssertionError(f"record {len(records)}: a CRC or length "
+                                 f"is wrong")
+        records.append(_proto_fields(body))
+        at += 16 + n
+    if records[0].get(3) != [b"brain.Event:2"]:
+        raise AssertionError(f"first record: {records[0]}")
+    got = {}
+    for ev in records[1:]:
+        for value in _proto_fields(ev[5][0])[1]:
+            val = _proto_fields(value)
+            got.setdefault(val[1][0].decode(), []).append(
+                (ev.get(2, [0])[0], struct.unpack("<f", val[2][0])[0]))
+    want = {"train/loss": [h["loss"] for h in hist],
+            "train/psnr": [h["psnr"] for h in hist],
+            "train/rm_s": [h["rm_samples"] / batch_size for h in hist],
+            "train/vr_s": [h["vr_samples"] / batch_size for h in hist]}
+    steps = [h["step"] for h in hist]
+    if sorted(got) != sorted(TB_TAGS):
+        raise AssertionError(f"tags {sorted(got)}")
+    for tag in TB_TAGS:
+        if ([s for s, _ in got[tag]] != steps
+                or not np.array_equal(np.float32([v for _, v in got[tag]]),
+                                      np.float32(want[tag]))):
+            raise AssertionError(f"{tag}: {got[tag]} against {want[tag]} "
+                                 f"at {steps}")
+    return dict(file=files[0], bytes=len(data), records=len(records),
+                tags=sorted(got), steps=steps,
+                values={t: [v for _, v in got[t]] for t in TB_TAGS})
+
+
+# Data parallelism on one card: a group of one NCCL rank in this process,
+# then two gloo ranks spawned on this card (NCCL refuses two ranks on one
+# device; gloo takes the CUDA tensors of every collective the port uses).
+DDP_STEPS = 256                # the one-rank group's fit
+DDP_ADAPTED_STEPS = 512        # its fit on, past grid warmup: the later state
+DDP_PAIR_STEPS = 64            # the two ranks' steps after their check
+DDP_RAYS = 8192                # the explicit global batch of the checks
+DDP_SEED = 11
+VALIDATE_TOL = 1e-6            # two ranks' validate means against one's
+
+
+def ddp_path(torch, card, dev="cuda"):
+    """(a) a process group of world size 1 over NCCL: the flagship fits
+    DDP_STEPS steps through the data-parallel code (the gradient
+    all-reduce, the gathered metrics), then one step's loss and gradients
+    on an explicit global batch; a system outside any group loads its
+    state and takes the same step: within TRAINED_KERNEL_TOL.  (b) two
+    gloo ranks on this card load the same state: the same step over their
+    two shards at a CSR pool with room (`scaling.ROOM_MULT`: the two
+    ranks' pools then hold the one-rank pool's samples) within
+    TRAINED_KERNEL_TOL of the one-rank step, and at the controller's own
+    budget, where each rank's pool and staging budget bind on its own
+    shard (ROADMAP §4), read and not held; their 2-view validate within
+    VALIDATE_TOL of its means, then DDP_PAIR_STEPS
+    more steps, after which parameters, moments and grids are torch.equal
+    across the ranks, with the count of those steps on which a rank's pool
+    was full; each rank launches K1, K2+K5, K7 and K8.  Then the same
+    step at the controller's budget from the state that (a)'s fit reaches
+    at DDP_ADAPTED_STEPS, after the controller has left the warmup
+    budget: read against the no-group step, not held.  The
+    path's launches are those of (a)'s fit, counted from 0 just before it,
+    and of both ranks, counted from 0 at their start.  First, with no
+    group, `scaling.pool_split`: how far 2 and 4 ranks' own budgets part
+    from the global one on the seeded flagship's first step (ROADMAP §4).
+    `dev="cpu"` rehearses it on the CPU (gloo, the plain versions: no
+    launches)."""
+    import torch.distributed as dist
+
+    from ngp_pl_torch import parallel
+    from ngp_pl_torch.benchmarking import scaling
+    from ngp_pl_torch.benchmarking.train_setup import (
+        train_config,
+        train_system,
+    )
+
+    t0 = time.perf_counter()
+    split = scaling.pool_split(dev=dev)
+    counters = _counters()
+    with _build_tmp() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        path_b = os.path.join(tmp, "state_adapted.npz")
+        dist.init_process_group(
+            "nccl" if dev == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "store"), rank=0,
+            world_size=1)
+        try:
+            system = train_system(train_config(), dev=dev)
+            for c in counters.values():
+                c.launches = 0
+            hist = list(system.fit(max_steps=DDP_STEPS, log_every=128,
+                                   quiet=True))
+            _sync(torch, system.dev)
+            fit_launches = {k: c.launches for k, c in counters.items()}
+            step_a = scaling.explicit_grads(system, DDP_RAYS, DDP_SEED)
+            ctl = step_a[2]
+            system.save(path)
+            system.fit(max_steps=DDP_ADAPTED_STEPS - DDP_STEPS,
+                       log_every=128, quiet=True)
+            step_b = scaling.explicit_grads(system, DDP_RAYS, DDP_SEED)
+            ctl_b = step_b[2]
+            system.save(path_b)
+            names = [n if i is None else f"{n}[{i}]"
+                     for n, i, _ in system.ngp._slots()]
+            del system
+        finally:
+            dist.destroy_process_group()
+        if not (all(math.isfinite(h["loss"]) for h in hist)
+                and hist[-1]["skipped_total"] == 0 and all(
+                    fit_launches[k] > 0 for k in FLAGSHIP_KERNELS)):
+            raise AssertionError(f"ddp: the one-rank group's fit: {hist}, "
+                                 f"{fit_launches}")
+        plain = scaling.pair_system(dev)
+        scaling.load_state(plain, path, ctl)
+        plain_steps = {m: scaling.explicit_grads(plain, DDP_RAYS, DDP_SEED,
+                                                 pool_mult=m)
+                       for m in (None, scaling.ROOM_MULT)}
+        scores = plain.validate(save_images=False)
+        scaling.load_state(plain, path_b, ctl_b)
+        plain_b = scaling.explicit_grads(plain, DDP_RAYS, DDP_SEED)
+        del plain
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        parallel.launch(scaling.pair_run, 2,
+                        (tmp, path, ctl, DDP_RAYS, DDP_PAIR_STEPS,
+                         (path_b, ctl_b), dev),
+                        device="cuda:0" if dev == "cuda" else "cpu",
+                        backend="gloo", store_dir=tmp)
+        pair = torch.load(os.path.join(tmp, "pair.pt"), weights_only=False)
+    def err(got, ref):
+        return dict(_step_err(torch, names,
+                              dict(loss=got[0], grads=got[1], pool={}),
+                              dict(loss=ref[0], grads=ref[1], pool={})),
+                    samples=got[2]["samples"], slots=got[2]["slots"],
+                    pool_mult=got[2]["pool_mult"])
+
+    one = err(step_a, plain_steps[None])
+    two = err(pair["steps"][scaling.ROOM_MULT],
+              plain_steps[scaling.ROOM_MULT])
+    two_own = err(pair["steps"][None], plain_steps[None])
+    two_adapted = err(pair["adapted"], plain_b)
+    val_err = {k: abs(pair["validate"][k] - v) / abs(v)
+               for k, v in scores.items()}
+    launches = {k: fit_launches[k] + sum(int(r.get(k, 0))
+                                         for r in pair["launches"])
+                for k in fit_launches}
+    for name, err in (("one NCCL rank", one), ("two gloo ranks", two)):
+        if not (err["loss_rel_err"] <= TRAINED_KERNEL_TOL[0]
+                and err["grad_rel_err_max"] <= TRAINED_KERNEL_TOL[1]):
+            raise AssertionError(f"ddp: {name} against no group: {err}")
+    if not (pair["ranks_equal"] and pair["finite"]
+            and set(val_err) == {"psnr", "ssim"}
+            and max(val_err.values()) <= VALIDATE_TOL
+            and all(r[k] > 0 for r in pair["launches"]
+                    for k in FLAGSHIP_KERNELS)):
+        raise AssertionError(f"ddp: two ranks: {pair}, {val_err}")
+    return dict(
+        card=card, per_rank_budgets_vs_global=split,
+        steps_one_rank_group=DDP_STEPS,
+        loss_one_rank_group={h["step"]: h["loss"] for h in hist},
+        controller=ctl, rays=DDP_RAYS, tol=TRAINED_KERNEL_TOL,
+        one_nccl_rank_vs_no_group=one, two_gloo_ranks_vs_no_group=two,
+        two_gloo_ranks_vs_no_group_own_budget=two_own,
+        adapted_steps=DDP_ADAPTED_STEPS, controller_adapted=ctl_b,
+        two_gloo_ranks_vs_no_group_own_budget_adapted=two_adapted,
+        pair_full_pool_steps=pair["full_pool_steps"],
+        pair_csr_steps=pair["csr_steps"],
+        pair_device=pair["device"], pair_steps=DDP_PAIR_STEPS,
+        pair_ranks_equal=pair["ranks_equal"],
+        pair_seconds=pair["seconds"], validate_no_group=scores,
+        validate_two_ranks=pair["validate"], validate_rel_err=val_err,
+        validate_tol=VALIDATE_TOL, launches_one_rank_group=fit_launches,
+        launches_per_rank=pair["launches"], launches=launches,
+        seconds_one_rank=t1 - t0, seconds=time.perf_counter() - t0)
 
 
 def validate_dumps(torch, system):
@@ -2533,9 +2807,10 @@ def main() -> int:
 
     # full checkpoints, resumed; the trained system's validation dumps; the
     # bench entry point: each counted from 0 at its start
-    system, resume = resume_path(torch)
+    system, tb, resume = resume_path(torch)
     launches["resume"] = resume["launches"]
     log({"phase": "resume", "card": card, **resume})
+    log({"phase": "tensorboard", **tb})
     log({"phase": "validate", "card": card,
          **validate_dumps(torch, system)})
     # what users do with that trained field: its slim checkpoint through
@@ -2557,6 +2832,10 @@ def main() -> int:
     log({"phase": "interop", **interop_path(torch, card, system)})
     del system
     torch.cuda.empty_cache()
+    # data parallelism: one NCCL rank, then two gloo ranks on this card
+    ddp = ddp_path(torch, card)
+    launches["ddp"] = ddp["launches"]
+    log({"phase": "ddp", **ddp})
     bench = bench_path(torch)
     launches["bench"] = bench["launches"]
     log({"phase": "bench", "card": card, **bench})

@@ -114,6 +114,11 @@ class TrainConfig:
     grid_update_interval: int = 16
     grid_warmup_steps: int = 256
     train_layout: str = "auto"                 # auto|strided|csr|rounds
+    # data-parallel ranks, one process per GPU (reference opt.py --num_gpus):
+    # 0 = every visible GPU, as the JAX package's `jax.device_count()`.
+    # The JAX package's `mesh_data_axis` names its mesh axis; one process
+    # per GPU has no mesh, so the port has no such field.
+    num_devices: int = 0
     log_every: int = 100
     # validation (opt.py:54-60)
     eval_lpips: bool = False    # raises without LPIPS weights (LPIPSHook)
@@ -200,6 +205,10 @@ def add_train_args(parser) -> None:
     parser.add_argument("--ckpt_path", type=str, default=None)
     parser.add_argument("--train_layout", type=str, default=d.train_layout,
                         choices=["auto", "rounds", "csr", "strided"])
+    parser.add_argument("--num_devices", type=int, default=d.num_devices,
+                        help="data-parallel ranks, one process per GPU; 0 = "
+                        "every visible GPU (with --device cpu: gloo ranks, "
+                        "0 = one)")
 
 
 def config_from_args(args) -> TrainConfig:

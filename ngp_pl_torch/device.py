@@ -23,3 +23,16 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def check_current(dev: torch.device) -> None:
+    """Raise unless `dev` is the current CUDA device.  The hand kernels
+    launch through ctypes into the calling thread's current CUDA context,
+    whatever device their tensors are on, and cache their occupancy and
+    shared-memory attributes once per process; one process per GPU, with
+    its card set before anything else, keeps both right."""
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensors on {dev}, but the current CUDA device is "
+            f"cuda:{torch.cuda.current_device()}: the kernels launch on the "
+            f"current device (torch.cuda.set_device)")

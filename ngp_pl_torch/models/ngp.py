@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import NGPConfig
 from ngp_pl_torch.device import resolve_device
 from ngp_pl_torch.ops.field_tail import (
@@ -81,7 +82,9 @@ class _MLP(torch.autograd.Function):
     output is rounded to bf16 (the dot's bf16 result type), and so are each
     weight's gradient and each hidden layer's input cotangent (before the
     ReLU's mask); the input's gradient is an f32 sum of bf16 products (the
-    widening convert folds into the dot)."""
+    widening convert folds into the dot).  In a process group a weight's
+    gradient is the ranks' mean before it is rounded, as the one-rank
+    step rounds the whole batch's sum."""
 
     @staticmethod
     def forward(ctx, x, *ws):
@@ -102,7 +105,8 @@ class _MLP(torch.autograd.Function):
         ct = _bf(g)
         dws = [None] * n
         for i in reversed(range(n)):
-            dws[i] = _bf(acts[i].T @ ct)
+            # in a process group: the global sum, then its rounding
+            dws[i] = _bf(parallel.mean_partial(acts[i].T @ ct))
             d_in = ct @ wbs[i].T
             if i > 0:            # acts[i] > 0 exactly where its z was
                 ct = torch.where(acts[i] > 0, _bf(d_in), 0.0)

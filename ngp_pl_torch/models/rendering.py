@@ -173,7 +173,7 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                pool_valid=m.valid, offsets=m.offsets,
                rm_samples=m.total, rm_counts=m.rm_counts,
                chain_demand=m.chain_demand, chain_demand_q=m.chain_demand_q,
-               vr_counts=out["vr_samples"],
+               chain_need=m.per_ray_need, vr_counts=out["vr_samples"],
                vr_samples=out["vr_samples"].sum())
     return out
 
@@ -209,7 +209,7 @@ def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     out.update(loss_mask=m.rm_counts <= S, deltas=m.deltas, ts=m.ts,
                valid=m.valid, rm_samples=m.total, rm_counts=m.rm_counts,
                chain_demand=m.chain_demand, chain_demand_q=m.chain_demand_q,
-               vr_counts=out["vr_samples"],
+               chain_need=m.per_ray_need, vr_counts=out["vr_samples"],
                vr_samples=out["vr_samples"].sum())
     return out
 

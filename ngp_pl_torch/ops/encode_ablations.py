@@ -191,7 +191,8 @@ class _Kernel:
         dev = meta_T.get_device()
         p_rows, p_meta, p_w1 = rows.data_ptr(), meta_T.data_ptr(), \
             w1big.data_ptr()
-        if not (dev >= 0 and rows.get_device() == dev
+        if not (dev >= 0 and dev == torch.cuda.current_device()
+                and rows.get_device() == dev
                 and w1big.get_device() == dev and rows.dtype is torch.int32
                 and meta_T.dtype is torch.float32
                 and w1big.dtype is torch.float32 and rows.shape == shape

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ngp_pl_torch import _build
+from ngp_pl_torch.device import check_current
 from ngp_pl_torch.ops.hash_encoding import _bf
 
 H_HID = 64      # hidden width (sigma + rgb MLPs, networks.py:48-77)
@@ -166,6 +167,7 @@ def _check_cuda_args(h1, sh, w2, wr1, wr2, wr3):
                            ("wr1", wr1, (H_SH + H_GEO, H_HID)),
                            ("wr2", wr2, (H_HID, H_HID)), ("wr3", wr3, (H_HID, 3))):
         _check_cuda(name, t, h1.device, shape)
+    check_current(h1.device)
 
 
 @functools.lru_cache(maxsize=None)

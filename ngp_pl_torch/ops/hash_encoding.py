@@ -44,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from ngp_pl_torch import _build
+from ngp_pl_torch.device import check_current
 
 # Instant-NGP spatial hash primes (pi_1 = 1 implicitly on x).
 PRIMES = (1, 2654435761, 805459861)
@@ -245,8 +246,9 @@ def hash_encode_fwd_plain(x: torch.Tensor, table: torch.Tensor,
 def _check_tensors(dev: torch.device, *tensors) -> None:
     """Each (name, tensor, dtype, shape, alignment) must be a contiguous
     tensor of that dtype and shape, aligned to that many bytes, on the CUDA
-    device `dev`.  Dtypes and shapes are checked before devices, so that a
-    table of the wrong kind is named as such on any device."""
+    device `dev`, which must be the current one.  Dtypes and shapes are
+    checked before devices, so that a table of the wrong kind is named as
+    such on any device."""
     for name, t, dt, shape, align in tensors:
         if (t.dtype != dt or tuple(t.shape) != tuple(shape)
                 or not t.is_contiguous() or t.data_ptr() % align):
@@ -257,6 +259,7 @@ def _check_tensors(dev: torch.device, *tensors) -> None:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name} must be on the CUDA device of x, got "
                              f"{t.device}")
+    check_current(dev)
 
 
 def _check_spec(spec: HashGridSpec, F: int) -> None:

@@ -321,6 +321,8 @@ class MarchResults(NamedTuple):
     rm_counts: torch.Tensor      # (N,) samples found by marching (pre-clip)
     chain_demand: torch.Tensor   # () chain steps the batch needs
     chain_demand_q: torch.Tensor  # () 99th percentile of the per-ray need
+    per_ray_need: torch.Tensor   # (N,) int32 one past each ray's last
+    #                              occupied chain step (0 for none)
 
 
 def _f32(v: float) -> float:
@@ -655,7 +657,8 @@ def march_rays_train_window(rays_o, rays_d, hits_t, noise, win_rows, *,
     return MarchResults(*pool[:4], counts=pool[4], offsets=pool[5],
                         total=pool[6], rm_counts=pool[7],
                         chain_demand=per_ray_need.max(),
-                        chain_demand_q=q99(per_ray_need))
+                        chain_demand_q=q99(per_ray_need),
+                        per_ray_need=per_ray_need)
 
 
 class StridedMarch(NamedTuple):
@@ -671,6 +674,7 @@ class StridedMarch(NamedTuple):
     total: torch.Tensor          # () kept samples of the batch
     chain_demand: torch.Tensor   # () chain steps the batch needs
     chain_demand_q: torch.Tensor  # () 99th percentile of the per-ray need
+    per_ray_need: torch.Tensor   # (N,) int32, as MarchResults'
 
 
 def march_rays_train_strided(rays_o, rays_d, hits_t, noise, win_rows, *,
@@ -718,7 +722,8 @@ def march_rays_train_strided(rays_o, rays_d, hits_t, noise, win_rows, *,
                         valid=valid, counts=counts, rm_counts=rm_counts,
                         total=counts.sum(dtype=torch.int32),
                         chain_demand=per_ray_need.max(),
-                        chain_demand_q=q99(per_ray_need))
+                        chain_demand_q=q99(per_ray_need),
+                        per_ray_need=per_ray_need)
 
 
 def _chain_bits(rays_o, rays_d, t0, hit, t2, K, *, win_rows, occ_grid,
@@ -803,4 +808,5 @@ def march_rays_train(rays_o, rays_d, hits_t, occ_grid, noise, *,
                         chain_demand=(per_ray_need.max()
                                       if chain_demand is None
                                       else chain_demand),
-                        chain_demand_q=q99(per_ray_need))
+                        chain_demand_q=q99(per_ray_need),
+                        per_ray_need=per_ray_need)

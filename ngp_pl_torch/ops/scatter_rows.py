@@ -20,6 +20,7 @@ import functools
 import torch
 
 from ngp_pl_torch import _build
+from ngp_pl_torch.device import check_current
 
 
 def scatter_rows_plain(rows: torch.Tensor, idx: torch.Tensor,
@@ -48,6 +49,7 @@ def scatter_rows_cuda(rows: torch.Tensor, idx: torch.Tensor,
     if rows.device.type != "cuda" or idx.device != rows.device:
         raise ValueError("rows and idx must be on one CUDA device, got "
                          f"{rows.device} and {idx.device}")
+    check_current(rows.device)
     if (rows.dtype != torch.float32 or rows.dim() != 2
             or not rows.is_contiguous()):
         raise ValueError(f"rows: want contiguous float32 (P, W), got "

@@ -29,6 +29,27 @@ The train rays stay on the card when they fit 4 GiB
 (`TrainConfig.device_dataset_max_bytes`); a larger store stays on the host
 and each batch is drawn there and copied.
 
+`--num_devices N` trains data-parallel over N GPUs of this host, one
+process per GPU (NCCL; 0, the default, takes every visible GPU, and a count
+above them raises); with `--device cpu` it runs N gloo ranks on the CPU.
+The batch is global: each rank takes 1/N of its rays, and the gradients are
+averaged before every update.  `--multihost` joins a group started by an
+outside launcher instead, from RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR
+and MASTER_PORT (`python -m torch.distributed.run --nproc_per_node 4 -m
+ngp_pl_torch.train --multihost ...`).  Rank 0 alone prints, saves, writes
+the TensorBoard record and the GIFs and traces; each rank scores and dumps
+its share of the test views (views r, r + N, ...).
+
+    python -m ngp_pl_torch.train --num_devices 4 --num_epochs 1 \\
+        --iters_per_epoch 512
+    python -m ngp_pl_torch.train --device cpu --num_devices 2 --n_levels 4 \\
+        --log2_hashmap_size 12 --batch_size 256 --downsample 0.1875 \\
+        --num_epochs 1 --iters_per_epoch 32
+
+Every logged step's train/loss, train/psnr, train/rm_s and train/vr_s go
+to a TensorBoard event file in logs/<dataset>/<exp_name>, as the JAX
+package writes them (`utils/events.py`; no tensorboard package needed).
+
 `--profile_dir DIR` traces the fit's steps 64-96 with torch.profiler into
 DIR/trace_steps64-96.json (Chrome trace format, for viewing).
 
@@ -51,6 +72,7 @@ import argparse
 import os
 import time
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import add_train_args, config_from_args
 from ngp_pl_torch.datasets.color_utils import read_png
 from ngp_pl_torch.training.system import NeRFSystem
@@ -70,6 +92,8 @@ def assemble_videos(val_dir: str) -> list:
 
 
 def main(argv=None):
+    """Returns (system, scores) of this process's run; (None, None) in the
+    process that spawned the ranks of `--num_devices` N > 1."""
     parser = argparse.ArgumentParser()
     add_train_args(parser)
     parser.add_argument("--device", type=str, default="cuda")
@@ -78,22 +102,57 @@ def main(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of steps 64-96 "
                         "here (Chrome trace format)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group from RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR and MASTER_PORT (as "
+                        "torch.distributed.run sets them)")
     args = parser.parse_args(argv)
+    if args.multihost:
+        parallel.init_from_env(args.device)
+        try:
+            out = run(args)
+            parallel.barrier()
+            return out
+        finally:
+            parallel.destroy()
+    world = parallel.resolve_world(args.num_devices, args.device)
+    if world == 1:
+        return run(args)
+    if args.device != "cpu":
+        from ngp_pl_torch import _build
+
+        _build.build()              # once, before the ranks load them
+    # by its module's name: the spawned ranks cannot import `__main__.run`
+    from ngp_pl_torch import train as entry
+
+    parallel.launch(entry.run, world, (args,), device=args.device)
+    return None, None
+
+
+def run(args):
+    """Train and score in this process (a rank of a group, or alone)."""
     tcfg = config_from_args(args)
     system = NeRFSystem(tcfg, device=args.device)
+    lead = system.rank == 0
     if tcfg.ckpt_path:
         system.load(tcfg.ckpt_path)
     if not tcfg.val_only:
         t0 = time.time()
         system.fit(max_steps=tcfg.max_steps - system._host_step,
                    profile_dir=args.profile_dir)
-        print(f"training took {time.time() - t0:.1f}s")
-        ckpt_dir = os.path.join("ckpts", tcfg.dataset_name, tcfg.exp_name)
-        os.makedirs(ckpt_dir, exist_ok=True)
-        system.save(os.path.join(ckpt_dir, f"epoch={tcfg.num_epochs}.npz"))
-        system.save_slim(
-            os.path.join(ckpt_dir, f"epoch={tcfg.num_epochs}_slim.npz"))
+        if lead:
+            print(f"training took {time.time() - t0:.1f}s")
+            ckpt_dir = os.path.join("ckpts", tcfg.dataset_name,
+                                    tcfg.exp_name)
+            os.makedirs(ckpt_dir, exist_ok=True)
+            system.save(os.path.join(ckpt_dir,
+                                     f"epoch={tcfg.num_epochs}.npz"))
+            system.save_slim(
+                os.path.join(ckpt_dir, f"epoch={tcfg.num_epochs}_slim.npz"))
     scores = system.validate(max_images=args.max_images)
+    parallel.barrier()                # every rank's dumps are written
+    if not lead:
+        return system, scores
     print("test: " + " ".join(f"{k}={v:.4f}" for k, v in scores.items()))
     if (not tcfg.no_save_test and tcfg.dataset_name == "nsvf"
             and "Synthetic" in (tcfg.root_dir or "")):

@@ -34,6 +34,17 @@ reading a per-ray exposure from a 4-channel ray store where the dataset has
 one and anchoring the tonemappers at the dataset's `unit_exposure_rgb`
 (0.5 without one).
 
+In a process group (`ngp_pl_torch.parallel`, one process per GPU; the
+counterpart of the JAX system's data mesh, system.py:95-114) the batch
+stays global: every rank draws it, and the march noise, from the same
+seeded generators and keeps its rows, so the grid refresh and the
+background draw the same numbers everywhere; rank 0's state is broadcast
+at construction and after `load` (`replicate`); `train_step` averages the
+gradients and reduces the metrics over the ranks; validation renders
+views r, r + N, ... on rank r and averages the ranks' sums; rank 0 alone
+logs and traces.  Each logged step's scalars go to a TensorBoard event
+file in logs/<dataset_name>/<exp_name> (system.py:264-271, 537-546).
+
 The march is the JAX package's choice (system.py:227-245): the 8-step
 windows for one cascade with uniform steps where `segment_march_dmax_ok`
 holds, the two-window chain where `window_march_mc_ok` holds (multi-cascade
@@ -52,6 +63,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import MAX_SAMPLES, NGPConfig, RenderConfig, TrainConfig
 from ngp_pl_torch.datasets import dataset_dict
 from ngp_pl_torch.datasets.ray_utils import get_rays
@@ -94,6 +106,7 @@ from ngp_pl_torch.training.train_step import (
     sample_batch,
     train_step,
 )
+from ngp_pl_torch.utils.events import EventWriter
 from ngp_pl_torch.utils.images import depth2img, write_png
 
 LAYOUTS = ("auto", "csr", "strided", "rounds")
@@ -151,6 +164,20 @@ class NeRFSystem:
                              f"{LAYOUTS}")
         self.dev = resolve_device(device)
         self.tcfg = tcfg
+        self.world, self.rank = parallel.world_size(), parallel.rank()
+        if tcfg.num_devices > 1 and not parallel.active():
+            raise RuntimeError(
+                f"num_devices={tcfg.num_devices} needs a process group of as "
+                f"many ranks (ngp_pl_torch.train, or parallel.launch)")
+        if parallel.active():
+            if tcfg.num_devices not in (0, self.world):
+                raise ValueError(f"num_devices={tcfg.num_devices} in a group "
+                                 f"of {self.world} ranks")
+            if self.dev.type == "cuda":         # this rank's own card
+                self.dev = torch.device("cuda", torch.cuda.current_device())
+        if tcfg.batch_size % self.world:
+            raise ValueError(f"batch_size={tcfg.batch_size} does not split "
+                             f"over {self.world} ranks")
         self.cfg: NGPConfig = tcfg.ngp_config()
         self.rcfg: RenderConfig = tcfg.render_config()
         ds_cls = dataset_dict[tcfg.dataset_name]
@@ -236,6 +263,27 @@ class NeRFSystem:
         self._pending_demand = None
         # True pins layout, budget and chain at their current values
         self.freeze_buckets = False
+        self._writer: Optional[EventWriter] = None
+        self.replicate()
+
+    def replicate(self):
+        """Every rank takes rank 0's parameters, Adam moments and counts,
+        grid state, poses and step (the counterpart of `replicate`, as DDP
+        broadcasts at wrap time); nothing without a process group."""
+        if not parallel.active():
+            return
+        opts = [self.optimizer] + ([self.pose.opt] if self.pose else [])
+        gs = self.grid_state
+        parallel.broadcast_(
+            [t for o in opts for t in o.params + o.mu + o.nu]
+            + [gs.density_grid, gs.count_grid, gs.occ_grid, gs.mean_density,
+               gs.win_rows])
+        counts = torch.tensor([o.count for o in opts] + [self._host_step],
+                              dtype=torch.int64, device=self.dev)
+        parallel.broadcast_([counts])
+        *opt_counts, self._host_step = (int(c) for c in counts.tolist())
+        for o, c in zip(opts, opt_counts):
+            o.count = c
 
     def _window_ok(self, ds) -> bool:
         """The JAX package's window rule for a dataset's cameras."""
@@ -279,12 +327,17 @@ class NeRFSystem:
         """(img_idxs, pix_idxs, payload) of one batch on the card: drawn
         there from the resident store, or on the host by the dataset's
         `sample_batch` and copied (system.py:274-279).  The payload is the
-        rgb and, where the store has it, the exposure column."""
+        rgb and, where the store has it, the exposure column.  In a process
+        group every rank draws the global batch and keeps its own rows
+        (`parallel.shard`), so that the generators stay in step."""
         tcfg = self.tcfg
         if self.rays is not None:
-            return sample_batch(self.rays, tcfg.batch_size,
-                                tcfg.ray_sampling_strategy, self.generator)
-        batch = self.train_dataset.sample_batch(self._rng)
+            return tuple(parallel.shard(t) for t in sample_batch(
+                self.rays, tcfg.batch_size, tcfg.ray_sampling_strategy,
+                self.generator))
+        batch = {k: parallel.shard(torch.from_numpy(v)).numpy()
+                 for k, v in self.train_dataset.sample_batch(
+                     self._rng).items()}
         cols = [batch["rgb"]] + ([batch["exposure"]] if "exposure" in batch
                                  else [])
         host = [torch.from_numpy(batch["img_idxs"]),
@@ -306,8 +359,8 @@ class NeRFSystem:
                                             img)
         else:
             rays_o, rays_d = get_rays(self.directions[pix], self.poses[img])
-        noise = torch.rand(tcfg.batch_size, generator=self.generator,
-                           device=self.dev)
+        noise = parallel.shard(torch.rand(
+            tcfg.batch_size, generator=self.generator, device=self.dev))
         gs = self.grid_state
         return train_step(self.ngp, self.optimizer,
                           gs.win_rows if self.window_march else None,
@@ -456,11 +509,15 @@ class NeRFSystem:
             profile_dir: Optional[str] = None):
         """Train `max_steps` steps (system.py:475-522): 16-step blocks when
         the step counts allow, single steps otherwise.  Logs the JAX
-        trainer's line plus the skipped-step count.  With `profile_dir`
-        the fit's steps 64-96 run under torch.profiler and its Chrome trace
-        is written there (`TRACE_FILE`; `StepTrace`)."""
+        trainer's line plus the skipped-step count, keeps it in `history`
+        and writes its TensorBoard scalars (`_log_fit`).  With
+        `profile_dir` the fit's steps 64-96 run under torch.profiler and
+        its Chrome trace is written there (`TRACE_FILE`; `StepTrace`).  In
+        a process group rank 0 alone logs, keeps `history` and traces."""
         max_steps = max_steps or self.tcfg.max_steps
         log_every = log_every or self.tcfg.log_every
+        lead = self.rank == 0
+        quiet = quiet or not lead
         self.on_train_start()
         t0 = time.time()
         nb = self.tcfg.grid_update_interval
@@ -468,13 +525,14 @@ class NeRFSystem:
         blocks = (self._host_step % nb == 0 and max_steps % nb == 0
                   and log_every % nb == 0)
         n, run = (nb, self.step_block) if blocks else (1, self.step)
-        trace = StepTrace(profile_dir, self.dev) if profile_dir else None
+        trace = (StepTrace(profile_dir, self.dev) if profile_dir and lead
+                 else None)
         try:
             for i in range(max_steps // n):
                 metrics = trace.run(run, i * n, n) if trace else run()
                 skipped = skipped + metrics["n_skipped"]
                 self._note_layout(quiet)
-                if ((i + 1) * n) % log_every == 0 or i == 0:
+                if lead and (((i + 1) * n) % log_every == 0 or i == 0):
                     self._log_fit(metrics, (i + 1) * n, t0, quiet, skipped)
         finally:
             if trace:
@@ -502,12 +560,27 @@ class NeRFSystem:
         m["pool_mult"] = self._pool_mult
         m["chain_length"] = self.step_chain()
         self.history.append(m)
+        self._write_scalars(m)
         if not quiet:
             print(f"step {m['step']:6d} loss {m['loss']:.4f} "
                   f"psnr {m['psnr']:.2f} {m['layout']} x{m['pool_mult']} "
                   f"rm_s {m['rm_samples'] / self.tcfg.batch_size:.1f} "
                   f"{m['rays_per_s']:.0f} rays/s "
                   f"skipped {m['skipped_total']}", flush=True)
+
+    def _write_scalars(self, m):
+        """The JAX trainer's TensorBoard scalars of one logged step
+        (system.py:537-546) into logs/<dataset_name>/<exp_name>, the file
+        made at the first log; samples per ray over the global batch."""
+        if self._writer is None:
+            self._writer = EventWriter(os.path.join(
+                "logs", self.tcfg.dataset_name, self.tcfg.exp_name))
+        b = self.tcfg.batch_size
+        for tag, v in (("loss", m["loss"]), ("psnr", m["psnr"]),
+                       ("rm_s", m["rm_samples"] / b),
+                       ("vr_s", m["vr_samples"] / b)):
+            self._writer.add_scalar(f"train/{tag}", v, m["step"])
+        self._writer.flush()
 
     # -- validation -------------------------------------------------------
     @torch.no_grad()
@@ -522,7 +595,9 @@ class NeRFSystem:
         scored (system.py:589); with no view scored the result is empty.
         With `eval_lpips` each scored view's LPIPS(vgg) is averaged into
         "lpips" (system.py:593-629); without weights (`LPIPSHook`) it
-        raises before any render."""
+        raises before any render.  In a process group rank r renders and
+        dumps views r, r + N, ... and every rank returns the means over
+        all views (system.py:576-621)."""
         if self.tcfg.eval_lpips and not self.lpips.available:
             raise RuntimeError(
                 f"--eval_lpips: no LPIPS-vgg weights were found. Point "
@@ -544,7 +619,8 @@ class NeRFSystem:
         if max_images:
             n = min(n, max_images)
         psnrs, ssims, lpipss = [], [], []
-        for idx in range(n):
+        # rank r renders views r, r + n, ... (system.py:576-580)
+        for idx in range(self.rank, n, self.world):
             item = ds.test_item(idx)
             out = renderer.render_pose(
                 self.grid_state.occ_grid, dirs,
@@ -562,6 +638,17 @@ class NeRFSystem:
                           (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
                 write_png(os.path.join(val_dir, f"{idx:03d}_d.png"),
                           depth2img(out["depth"].reshape(h, w).cpu().numpy()))
+        if parallel.active():
+            # the global means, from every rank's sums and counts
+            sums = parallel.sum_floats(
+                [v for vals in (psnrs, ssims, lpipss)
+                 for v in (math.fsum(vals), len(vals))])
+            out = {}
+            for name, (tot, cnt) in zip(("psnr", "ssim", "lpips"),
+                                        zip(sums[::2], sums[1::2])):
+                if cnt:
+                    out[name] = tot / cnt
+            return out if "psnr" in out else {}
         if not psnrs:
             return {}
         out = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
@@ -604,3 +691,4 @@ class NeRFSystem:
             load_pose_state(self.pose, pose)
         self.grid_state = grid_state_from_numpy(grid, self.dev)
         self._host_step = step
+        self.replicate()

@@ -9,7 +9,11 @@ gradients -> Adam with the per-epoch cosine lr and the non-finite skip,
 and with `--optimize_ext` a second Adam for the poses beside it
 (`optax.multi_transform`, train_step.py:53-66).
 PyTorch runs it eagerly; nothing in a step reads a value back to the host,
-so a block of steps queues on the card without a sync.
+so a block of steps queues on the card without a sync.  In a process group
+each rank steps on its shard of the batch with the ranks' mean gradient
+(one all-reduce, as GSPMD's psum in the JAX mesh step,
+train_step.py:95-99, 293-297), and its metrics are the global batch's
+(`step_metrics`).
 
 Noise, background and batch indices are arguments of `train_step` and
 `sample_batch` takes an explicit `torch.Generator`, so the tests can feed
@@ -26,6 +30,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import RenderConfig, TrainConfig
 from ngp_pl_torch.datasets.ray_utils import (
     axisangle_to_R,
@@ -245,45 +250,75 @@ def train_step(ngp, opt: Adam, win_rows, rays_o, rays_d, target, noise, bg,
         occ_grid=occ_grid, exposure=exposure,
         unit_exposure_rgb=unit_exposure_rgb)
     loss = loss_of(target)
+    # in a process group every rank steps on the ranks' mean gradient,
+    # which is the gradient of the global batch's loss (a mean over all
+    # rays, masked ones included), so the skip is one decision
     if pose is None:
-        grads = torch.autograd.grad(loss, opt.params)
+        grads = parallel.grad_mean(torch.autograd.grad(loss, opt.params))
         finite = opt.step(grads)
     else:
         n = len(opt.params)
-        grads = torch.autograd.grad(loss, opt.params + pose.opt.params)
+        grads = parallel.grad_mean(
+            torch.autograd.grad(loss, opt.params + pose.opt.params))
         finite = grads_finite(grads)
         opt.step(grads[:n], finite)
         pose.opt.step(grads[n:], finite)
+    return step_metrics(loss.detach(), results, target, finite)
+
+
+def step_metrics(loss, results, target, finite) -> Dict[str, torch.Tensor]:
+    """`train_step`'s device metrics, among them the packed demand vector.
+    In a process group they are the global batch's, as the JAX mesh step's
+    are the one-device step's: loss, squared error and dropped share
+    averaged over the ranks' equal shards, sample and slot counts summed,
+    maxima as maxima (`rm_samples_rank_max`: the most samples one rank's
+    pool kept), and the demand's quantiles and means over the gathered
+    per-ray counts, so that every rank's controller takes the one-rank
+    decision; two all-gathers on the current stream.  Without a group
+    every reduction is the identity."""
     rgb = results["rgb"].detach()
-    rm_counts, vr_counts = results["rm_counts"], results["vr_counts"]
+    zero = torch.zeros((), device=rgb.device)
+    need = results.get("chain_need")
+    r = parallel.reduce_scalars(
+        sums={"rm_samples": results["rm_samples"],
+              "vr_samples": results["vr_samples"],
+              "rounds_alive_end": results.get("rounds_alive_end", zero),
+              "total_slots": results.get("total_slots", zero)},
+        means={"loss": loss,
+               "mse": torch.mean((rgb - target) ** 2),
+               # share of the batch outside the loss (strided, rounds)
+               "dropped_share": 1.0 - results["loss_mask"].to(
+                   torch.float32).mean()
+               if "loss_mask" in results else zero},
+        maxes={"rm_counts_max": results["rm_counts"].max(),
+               "chain_demand": results["chain_demand"],
+               "chain_demand_q": results["chain_demand_q"],
+               "rm_samples_rank_max": results["rm_samples"]})
+    rm_counts, vr_counts, *need = parallel.gather_counts(
+        [results["rm_counts"], results["vr_counts"]]
+        + ([need] if need is not None else []))
+    if need and parallel.active():  # else the march's own, or a constant
+        r["chain_demand_q"] = q99(need[0])
     aux = {
-        "rm_samples": results["rm_samples"],
-        "chain_demand": results["chain_demand"],
-        "chain_demand_q": results["chain_demand_q"],
+        "rm_samples": r["rm_samples"],
+        "chain_demand": r["chain_demand"],
+        "chain_demand_q": r["chain_demand_q"],
         "rm_counts_q": q99(rm_counts),
         "vr_counts_q": q99(vr_counts),
         "vr_counts_q90": qtile(vr_counts, 0.90),
         "vr_counts_mean": vr_counts.to(torch.float32).mean(),
-        "rounds_alive_end": results.get(
-            "rounds_alive_end", torch.zeros((), device=rgb.device)),
+        "rounds_alive_end": r["rounds_alive_end"],
         "rm_counts_mean": rm_counts.to(torch.float32).mean(),
     }
     return {
-        "loss": loss.detach(),
-        "psnr": -10.0 * torch.log10(torch.mean((rgb - target) ** 2)),
+        "loss": r["loss"],
+        "psnr": -10.0 * torch.log10(r["mse"]),
         "grads_finite": finite,
         "n_skipped": (~finite).to(torch.int32),
-        "rm_samples": results["rm_samples"],
-        "vr_samples": results["vr_samples"],
-        "rm_counts_max": rm_counts.max(),
-        "chain_demand": results["chain_demand"],
-        "chain_demand_q": results["chain_demand_q"],
-        # share of the batch outside the loss (strided, rounds)
-        "dropped_share": 1.0 - results["loss_mask"].to(torch.float32).mean()
-        if "loss_mask" in results else torch.zeros((), device=rgb.device),
-        "rounds_alive_end": aux["rounds_alive_end"],
-        "total_slots": results.get("total_slots",
-                                   torch.zeros((), device=rgb.device)),
+        **{k: r[k] for k in ("rm_samples", "vr_samples", "rm_counts_max",
+                             "chain_demand", "chain_demand_q",
+                             "dropped_share", "rounds_alive_end",
+                             "total_slots", "rm_samples_rank_max")},
         "demand_vec": torch.stack([aux[k].to(torch.float32)
                                    for k in DEMAND_KEYS]),
     }
