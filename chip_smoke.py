@@ -110,6 +110,21 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            at the controller's budget from the state at step 512, read
   bench    ngp_pl_torch.benchmarking.bench in this process, 512 warm-up
            steps and 192 timed ones: its JSON record
+  fps      ngp_pl_torch.benchmarking.bench_fps: the flagship fits 1536
+           steps, then 5 fenced 800x800 frames of test pose 0 at T 1e-2
+           (the JAX script's record, frame ms, K1 and K7 launched in the
+           timed frames); a 1024-ray crop of that frame with the kernels
+           on the card against the plain versions on the CPU
+           (reference_crop's limits); one more frame profiled by kernel
+  eval_fps  ngp_pl_torch.eval --fps_frames 5 --max_images 1 from the
+           resumed flagship's slim checkpoint: the "render:" line and
+           EvalResult.fps_loop
+  profile_step  ngp_pl_torch.benchmarking.profile_step of the flagship in
+           CSR, then strided, at 8192 rays after 192 steps: each stage's
+           fenced wall ms and device ms, the stages that partition a step
+           summed against the full step; K1, K2+K5, K7, K8 must launch
+  exr      ngp_pl_torch.misc.prepare_rtmv on a copy of the committed EXR
+           tree: its PNGs equal to those the JAX script wrote
 All of the train phases (train_reference, train, train_reference again,
 trained_render, profile, kernels) again in the strided layout
 (`_strided`: 8192 rays x S slots, the invalid ones at their ray's origin;
@@ -688,24 +703,34 @@ def reference_crop(torch, res, tcfg, n_rays: int = 1024):
     within K7_TOL of the plain one and a ray's weights sum to at most 1, so
     a pixel moves by at most K7_TOL plus the effect of sigma's 1e-5."""
     from ngp_pl_torch.datasets import dataset_dict
-    from ngp_pl_torch.models.ngp import NGP
-    from ngp_pl_torch.models.rendering import RoundRenderer
 
     ds = dataset_dict["synthetic"](split="test", downsample=tcfg.downsample,
                                    device="cpu")
-    pose = torch.from_numpy(ds.poses[0])
-    w = ds.img_wh[0]
+    return _crop_vs_cpu(torch, res.ngp, res.occ_grid, tcfg.render_config(),
+                        ds.directions, ds.poses[0], ds.img_wh[0], n_rays)
+
+
+def _crop_vs_cpu(torch, ngp, occ_grid, rcfg, directions, pose, w,
+                 n_rays: int = 1024):
+    """`n_rays` rays of the frame's centre (32 rows) through the round
+    renderer with `rcfg`, on the card with the kernels and on the CPU with
+    the plain versions, from the same parameters and grid: rgb and opacity
+    within 5e-3 (`reference_crop`'s limit)."""
+    from ngp_pl_torch.models.ngp import NGP
+    from ngp_pl_torch.models.rendering import RoundRenderer
+
+    pose = torch.from_numpy(pose)
     rows = torch.arange(w // 2 - 16, w // 2 + 16)
     pix = (rows[:, None] * w + torch.arange(w // 2 - n_rays // 64,
                                             w // 2 + n_rays // 64)).reshape(-1)
-    rd = torch.from_numpy(ds.directions)[pix] @ pose[:, :3].T
+    rd = torch.from_numpy(directions)[pix] @ pose[:, :3].T
     ro = pose[:, 3].expand(rd.shape).contiguous()
-    cpu_ngp = NGP(tcfg.ngp_config(), device="cpu")
-    cpu_ngp.load_params(res.ngp.params_numpy())
+    cpu_ngp = NGP(ngp.cfg, device="cpu")
+    cpu_ngp.load_params(ngp.params_numpy())
     outs = []
-    for model, dev in ((res.ngp, "cuda"), (cpu_ngp, "cpu")):
-        r = RoundRenderer(model, tcfg.render_config())
-        outs.append(r.render_image(res.occ_grid.to(dev), ro.to(dev),
+    for model, dev in ((ngp, "cuda"), (cpu_ngp, "cpu")):
+        r = RoundRenderer(model, rcfg)
+        outs.append(r.render_image(occ_grid.to(dev), ro.to(dev),
                                    rd.to(dev)))
     gpu, cpu = outs
     err = {k: float((gpu[k].cpu() - cpu[k]).abs().max())
@@ -743,8 +768,6 @@ def profile_frame(torch, res, tcfg, top: int = 12):
     the profile drops a kernel's records): device time by
     kernel, grouped into K1, K7 and the PyTorch kernels around them, and the
     device's idle share against the unprofiled frame time (1 / FPS)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ngp_pl_torch.datasets import dataset_dict
     from ngp_pl_torch.models.rendering import RoundRenderer
 
@@ -753,13 +776,24 @@ def profile_frame(torch, res, tcfg, top: int = 12):
     dirs = torch.from_numpy(ds.directions).cuda()
     pose = torch.from_numpy(ds.poses[0]).cuda()
     renderer = RoundRenderer(res.ngp, tcfg.render_config())
+    return _profile_render(
+        torch, lambda: renderer.render_pose(res.occ_grid, dirs, pose),
+        1e3 / res.fps, top)
+
+
+def _profile_render(torch, render, frame_ms, top: int = 12):
+    """`render()` (one frame) under torch.profiler, again while the profile
+    drops a kernel's records: device time by kernel, K1 and K7 apart, and
+    the idle share against the unprofiled `frame_ms`."""
+    from torch.profiler import ProfilerActivity, profile
+
     counters = _counters()
     for _ in range(PROFILE_TRIES):
         before = {k: c.launches for k, c in counters.items()}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            out = renderer.render_pose(res.occ_grid, dirs, pose)
+            out = render()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels = _device_kernels(prof)
@@ -771,7 +805,6 @@ def profile_frame(torch, res, tcfg, top: int = 12):
             break
     else:
         _fail_untimed(missing)
-    frame_ms = 1e3 / res.fps
     return dict(
         frame_ms_unprofiled=frame_ms, frame_ms_profiled=wall * 1e3,
         device_busy_ms=busy, idle_share=1.0 - busy / frame_ms,
@@ -810,9 +843,11 @@ def _fail_untimed(missing) -> None:
         f"device time to {[KERNEL_NAMES[k] for k in missing]}")
 
 
-def _sync(torch, dev) -> None:
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize()
+def sync(dev) -> None:
+    """`ngp_pl_torch.device.sync`, imported once the repo is on sys.path."""
+    from ngp_pl_torch.device import sync as fence
+
+    fence(dev)
 
 
 def _counters():
@@ -878,7 +913,7 @@ def train_fit(torch, system, steps=TRAIN_STEPS):
         hist = system.fit(max_steps=steps, log_every=128, quiet=True)
     finally:
         del system.step_block
-    _sync(torch, dev)
+    sync(dev)
     seconds = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     first, last = hist[0], hist[-1]
@@ -1390,10 +1425,10 @@ def trained_render(torch, system, downsample=6.25):
         renderer.render_pose(occ, dirs, pose)
         for c in counters.values():
             c.launches = 0
-        _sync(torch, system.dev)
+        sync(system.dev)
         t0 = time.perf_counter()
         out = renderer.render_pose(occ, dirs, pose)
-        _sync(torch, system.dev)
+        sync(system.dev)
     sec = time.perf_counter() - t0
     pred = out["rgb"].reshape(h, w, 3)
     if not bool(torch.isfinite(pred).all()):
@@ -1473,7 +1508,7 @@ def render_slice(torch, tcfg, views):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    res = evaluate(tcfg, device="cuda", max_images=views)
+    res = evaluate(tcfg, device="cuda", max_images=views, fps_frames=0)
     seconds = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     for img, opa in zip(res.images, res.opacities):
@@ -1513,7 +1548,7 @@ def ckpt_roundtrip(torch, res, tcfg):
         save_slim_checkpoint(path, params=res.ngp.params_numpy(),
                              occ_grid=res.occ_grid)
         res2 = evaluate(tcfg.replace(weight_path=path), device="cuda",
-                        max_images=1)
+                        max_images=1, fps_frames=0)
     same = bool(torch.equal(res.images[0], res2.images[0]))
     if not same:
         raise AssertionError("re-render from the slim checkpoint differs")
@@ -1944,7 +1979,7 @@ def host_batch_path(torch, card, tcfg, train_ds, test_ds):
         c.launches = 0
     t0 = time.perf_counter()
     hist = hs.fit(max_steps=HOST_STEPS, log_every=16, quiet=True)
-    _sync(torch, "cuda")
+    sync("cuda")
     seconds = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     rng = np.random.default_rng(tcfg.seed)
@@ -2055,7 +2090,7 @@ def resume_path(torch):
     # directory of its own, and is read back by `tensorboard_record`
     with _build_tmp() as tmp, contextlib.chdir(tmp):
         hist = loaded.fit(max_steps=RESUME_STEPS, log_every=128, quiet=True)
-        _sync(torch, loaded.dev)
+        sync(loaded.dev)
         loaded._writer.close()
         tb = tensorboard_record(os.path.join(
             "logs", loaded.tcfg.dataset_name, loaded.tcfg.exp_name), hist,
@@ -2245,7 +2280,7 @@ def ddp_path(torch, card, dev="cuda"):
                 c.launches = 0
             hist = list(system.fit(max_steps=DDP_STEPS, log_every=128,
                                    quiet=True))
-            _sync(torch, system.dev)
+            sync(system.dev)
             fit_launches = {k: c.launches for k, c in counters.items()}
             step_a = scaling.explicit_grads(system, DDP_RAYS, DDP_SEED)
             ctl = step_a[2]
@@ -2430,11 +2465,11 @@ def mesh_path(torch, card, slim, geometry, resolution, key, dev="cuda"):
     def counted(ngp, path, res, level):
         for c in counters.values():
             c.launches = 0
-        _sync(torch, dev)
+        sync(dev)
         seen["allocated_before"] = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         out = write_mesh(ngp, path, res, level)
-        _sync(torch, dev)
+        sync(dev)
         seen["peak_allocated"] = torch.cuda.max_memory_allocated()
         seen["launches"] = {k: c.launches for k, c in counters.items()}
         return out
@@ -2611,7 +2646,7 @@ def lpips_path(torch, card, system, dev="cuda"):
     x, y = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     secs = []
     for _ in range(2):
-        _sync(torch, dev)
+        sync(dev)
         t0 = time.perf_counter()
         value = float(lp.lpips(params, x, y))
         secs.append(time.perf_counter() - t0)
@@ -2673,7 +2708,7 @@ def interop_path(torch, card, system, dev="cuda"):
         """fn on the card and on the CPU; torch.equal per output."""
         t0 = time.perf_counter()
         got = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
-        _sync(torch, dev)
+        sync(dev)
         ms = 1e3 * (time.perf_counter() - t0)
         want = fn(*(a.cpu() if torch.is_tensor(a) else a for a in args))
         got = got if isinstance(got, tuple) else (got,)
@@ -2716,6 +2751,190 @@ def interop_path(torch, card, system, dev="cuda"):
     if not all(v["equal"] for v in out.values()):
         raise AssertionError(f"interop: the card differs from the CPU: {out}")
     return dict(card=card, **out)
+
+
+# The JAX repository's measurement and data scripts on the card: the render
+# FPS at the yardstick's threshold (bench_fps), the eval entry point's FPS
+# loop, the per-stage train-step profile and the RTMV preparation.
+FPS_SIZE = 800
+FPS_FRAMES = 5
+FPS_TRAIN_STEPS = 1536         # benchmarking/bench_fps.py's default
+PROFILE_WARM = 192             # benchmarking/profile_step.py's PROF_WARM
+PROFILE_BATCH = 8192           # its PROF_BATCH
+# the stages that partition a step: the march, the field's forward and
+# backward, the compositor's, Adam, and a sixteenth of the grid refresh
+STEP_PARTS = ("march (strided window)", "field fwd+bwd", "composite fwd+bwd",
+              "adam update")
+GRID_STAGE = "grid update (every 16 steps)"
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+RENDER_LINE = (r"^render: ([0-9.]+) FPS at (\d+)x(\d+) "
+               r"\(([0-9.]+) samples/ray\)$")
+
+
+def fps_path(torch, dev="cuda"):
+    """`ngp_pl_torch.benchmarking.bench_fps` on the flagship: its fit
+    (FPS_TRAIN_STEPS steps), then FPS_FRAMES fenced 800x800 frames of test
+    pose 0 at T 1e-2; the counts from 0 just before the fit, read after the
+    frames.  K1 and K7 must launch in the timed frames.  Then a 1024-ray
+    crop of that frame on the card against the plain versions on the CPU
+    (`_crop_vs_cpu`, reference_crop's limits) and one more frame under
+    torch.profiler, by kernel (`_profile_render`).  `dev="cpu"` rehearses
+    the phase, whose launch checks then fail by design."""
+    from ngp_pl_torch.benchmarking import bench_fps
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    system = bench_fps.fps_system(dev)
+    loss = bench_fps.train(system, FPS_TRAIN_STEPS)
+    train_s = time.perf_counter() - t0
+    rec = bench_fps.run(system, FPS_SIZE, FPS_FRAMES)
+    out = rec.pop("out")
+    # the record, bench_fps's detail (the timed frames' launches apart) and
+    # the phase's own counts
+    phase = {"record": {k: rec[k] for k in bench_fps.RECORD_KEYS},
+             **{k: v for k, v in rec.items()
+                if k not in bench_fps.RECORD_KEYS and k != "launches"},
+             "launches_timed_frames": rec["launches"],
+             "train_steps": FPS_TRAIN_STEPS, "train_loss": loss,
+             "train_seconds": train_s,
+             "launches": {k: c.launches for k, c in counters.items()}}
+    if not (rec["launches"]["K1"] > 0 and rec["launches"]["K7"] > 0
+            and math.isfinite(loss) and rec["fps"] > 0
+            and bool(torch.isfinite(out["rgb"]).all())):
+        raise AssertionError(f"fps: {phase}")
+    dirs, pose = bench_fps.camera(system, FPS_SIZE)
+    render = bench_fps.renderer(system.ngp, system.rcfg, dirs,
+                                bench_fps.frame_chunk(FPS_SIZE ** 2))
+    occ = system.grid_state.occ_grid
+    phase["crop"] = _crop_vs_cpu(torch, system.ngp, occ, render.rcfg, dirs,
+                                 pose, FPS_SIZE)
+    dirs_t = torch.from_numpy(dirs).to(system.dev)
+    pose_t = torch.from_numpy(pose).to(system.dev)
+    phase["profile"] = _profile_render(
+        torch, lambda: render.render_pose(occ, dirs_t, pose_t),
+        rec["frame_ms"])
+    del system, out
+    torch.cuda.empty_cache()
+    return phase
+
+
+def eval_fps_path(torch, card, slim, dev="cuda"):
+    """`ngp_pl_torch.eval.main` from the trained flagship's slim checkpoint
+    at 800x800 (--downsample 6.25) with --fps_frames 5 --max_images 1: the
+    JAX script's "render:" line is
+    printed and `EvalResult.fps_loop` set; the counts from 0 just before
+    and read just after; K1 and K7 must launch."""
+    import io
+    import re
+
+    from ngp_pl_torch import eval as ev
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = ev.main(["--weight_path", slim, "--downsample", "6.25",
+                       "--fps_frames", "5", "--max_images", "1",
+                       "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    line = re.search(RENDER_LINE, buf.getvalue(), re.M)
+    rec = dict(card=card, line=line.group(0) if line else None,
+               fps_loop=res.fps_loop,
+               fps_loop_samples_per_ray=res.fps_loop_samples_per_ray,
+               fps_views=res.fps, psnr=res.psnr, ssim=res.ssim,
+               seconds=seconds, launches=launches)
+    if not (line and res.fps_loop and res.fps_loop > 0
+            and (int(line.group(2)), int(line.group(3))) == (800, 800)
+            and launches["K1"] > 0 and launches["K7"] > 0):
+        raise AssertionError(f"eval_fps: {rec}, {buf.getvalue()[-500:]}")
+    return rec
+
+
+def profile_step_path(torch, card, layout, dev="cuda"):
+    """`ngp_pl_torch.benchmarking.profile_step` of the flagship in `layout`
+    at PROFILE_BATCH rays after PROFILE_WARM steps: every stage's fenced
+    wall ms and device ms, and the sum of the stages that partition a step
+    (STEP_PARTS and a sixteenth of the grid refresh) against the full step;
+    the counts from 0 just before, read just after; K1, K2+K5, K7 and K8
+    must launch."""
+    from ngp_pl_torch.benchmarking import profile_step as ps
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    system = ps.profile_system(dev, PROFILE_BATCH, layout)
+    rec = ps.run(system, layout, warm=PROFILE_WARM)
+    launches = {k: c.launches for k, c in counters.items()}
+    st = rec["stages"]
+    full = st["full step"]
+    # device ms exist on the card only
+    clocks = [c for c in ("wall_ms", "device_ms") if full[c] is not None]
+    parts = {clock: sum(st[k][clock] for k in STEP_PARTS)
+             + st[GRID_STAGE][clock] / 16 for clock in clocks}
+    out = dict(card=card, **rec,
+               parts=list(STEP_PARTS) + [GRID_STAGE + " / 16"],
+               parts_ms=parts,
+               parts_share_of_full_step={
+                   clock: parts[clock] / full[clock] for clock in parts},
+               # a 16-step block: sixteen of each stage, one grid refresh
+               block_device_ms={k: (1 if k == GRID_STAGE else 16)
+                                * (v["device_ms"] or 0.0)
+                                for k, v in st.items()},
+               seconds=time.perf_counter() - t0, launches=launches)
+    if not (len(clocks) == 2
+            and all(math.isfinite(v[c]) and v[c] > 0 for v in st.values()
+                    for c in clocks)
+            and all(launches[k] > 0 for k in FLAGSHIP_KERNELS)):
+        raise AssertionError(f"profile_step: {out}")
+    del system
+    torch.cuda.empty_cache()
+    return out
+
+
+def exr_path(card):
+    """`ngp_pl_torch.misc.prepare_rtmv` on a copy of the committed EXR tree
+    (tests/fixtures/rtmv_exr: two scenes, ZIP, RLE and ZIPS frames, a data
+    window off the origin, both line orders): every PNG it writes equal to
+    the committed one the JAX script wrote for the same frames."""
+    import glob
+    import importlib.util
+    import io
+    import shutil
+
+    import numpy as np
+
+    from ngp_pl_torch.datasets.color_utils import read_png
+    from ngp_pl_torch.misc import prepare_rtmv
+
+    with _build_tmp() as tmp:
+        root = os.path.join(tmp, "rtmv")
+        shutil.copytree(os.path.join(FIXTURES, "rtmv_exr"), root)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare_rtmv.main(root)
+        seconds = time.perf_counter() - t0
+        pngs = {}
+        for got in sorted(glob.glob(os.path.join(root, "*", "images",
+                                                 "*.png"))):
+            scene = os.path.basename(os.path.dirname(os.path.dirname(got)))
+            want = os.path.join(root, scene, "expected",
+                                os.path.basename(got))
+            a, b = read_png(got), read_png(want)
+            pngs[f"{scene}/{os.path.basename(got)}"] = bool(
+                a.shape == b.shape and np.array_equal(a, b))
+        n_exr = len(glob.glob(os.path.join(root, "*", "*.exr")))
+    rec = dict(card=card, frames=n_exr, pngs=pngs, seconds=seconds,
+               imageio_installed=importlib.util.find_spec("imageio")
+               is not None)
+    if not (n_exr == len(pngs) >= 5 and all(pngs.values())):
+        raise AssertionError(f"exr: {rec}")
+    return rec
 
 
 def _bound_shares(rec, at="main"):
@@ -2816,18 +3035,19 @@ def main() -> int:
     # what users do with that trained field: its slim checkpoint through
     # the mesh and viewer entry points (each counted from 0 at its start),
     # LPIPS, and the reference-layout grid ops
-    with _build_tmp() as tmp:
-        slim = os.path.join(tmp, "slim.npz")
-        system.save_slim(slim)
-        mesh, checks["K1"]["at_mesh_grid"] = mesh_path(
-            torch, card, slim, [], MESH_RES, "K1")
-        launches["mesh"] = mesh["launches"]
-        log({"phase": "mesh", **mesh})
-        log({"phase": "kernels", "kernel": "K1", "input": "mesh_grid",
-             "card": card, **checks["K1"]["at_mesh_grid"]})
-        gui = gui_path(torch, card, slim)
-        launches["gui"] = gui["launches"]
-        log({"phase": "gui", **gui})
+    # (the slim checkpoint stays until `eval_fps` has read it)
+    slim_dir = _build_tmp()
+    slim = os.path.join(slim_dir.name, "slim.npz")
+    system.save_slim(slim)
+    mesh, checks["K1"]["at_mesh_grid"] = mesh_path(
+        torch, card, slim, [], MESH_RES, "K1")
+    launches["mesh"] = mesh["launches"]
+    log({"phase": "mesh", **mesh})
+    log({"phase": "kernels", "kernel": "K1", "input": "mesh_grid",
+         "card": card, **checks["K1"]["at_mesh_grid"]})
+    gui = gui_path(torch, card, slim)
+    launches["gui"] = gui["launches"]
+    log({"phase": "gui", **gui})
     log({"phase": "lpips", **lpips_path(torch, card, system)})
     log({"phase": "interop", **interop_path(torch, card, system)})
     del system
@@ -2839,6 +3059,21 @@ def main() -> int:
     bench = bench_path(torch)
     launches["bench"] = bench["launches"]
     log({"phase": "bench", "card": card, **bench})
+    # the JAX repository's measurement and data scripts, each counted from
+    # 0 at its start: render FPS at T 1e-2, the eval FPS loop from the slim
+    # checkpoint, the train step stage by stage, EXR input
+    fps = fps_path(torch)
+    launches["fps"] = fps["launches"]
+    log({"phase": "fps", **fps})
+    eval_fps = eval_fps_path(torch, card, slim)
+    slim_dir.cleanup()
+    launches["eval_fps"] = eval_fps["launches"]
+    log({"phase": "eval_fps", **eval_fps})
+    for layout in ("csr", "strided"):
+        prof = profile_step_path(torch, card, layout)
+        launches["profile_step_" + layout] = prof["launches"]
+        log({"phase": "profile_step", **prof})
+    log({"phase": "exr", **exr_path(card)})
 
     # the flagship in the strided layout and in rounds with the distortion
     # loss, counted the same way

@@ -32,18 +32,18 @@ import time
 BASELINE_RAYS_PER_S = 1.0e6
 
 
-def bench_system(device: str, batch_size: int, scale: float,
-                 use_exposure: bool = False, optimize_ext: bool = False):
-    """bench.py's system: the flagship on 8 views at 96x96, one test view
-    (with the HDR head or pose refinement where asked)."""
+def bench_system(device: str, batch_size: int, scale: float = 0.5, **kw):
+    """bench.py's system: the flagship on 8 views at 96x96, one test view;
+    `kw` overrides the train configuration (the HDR head, pose refinement,
+    the layout, the run's name)."""
     from ngp_pl_torch.config import TrainConfig
     from ngp_pl_torch.datasets.synthetic import SyntheticDataset
     from ngp_pl_torch.training.system import NeRFSystem
 
-    tcfg = TrainConfig(dataset_name="synthetic", batch_size=batch_size,
-                       scale=scale, num_epochs=30, exp_name="bench",
-                       no_save_test=True, use_exposure=use_exposure,
-                       optimize_ext=optimize_ext)
+    tcfg = TrainConfig(**{"dataset_name": "synthetic",
+                          "batch_size": batch_size, "scale": scale,
+                          "num_epochs": 30, "exp_name": "bench",
+                          "no_save_test": True, **kw})
     return NeRFSystem(
         tcfg, device=device,
         train_dataset=SyntheticDataset(split="train", img_size=96, n_train=8,

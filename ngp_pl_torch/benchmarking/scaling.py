@@ -48,6 +48,8 @@ import time
 
 import torch
 
+from ngp_pl_torch.device import sync
+
 PARITY_SEED = 11
 WARM_STEPS = 256               # steps before the timed ones
 SPLIT_RAYS = 8192              # global rays of the split run
@@ -115,11 +117,6 @@ def full_pool_steps(seen: list) -> int:
     return sum(int(s) >= slots for s, slots in seen)
 
 
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def allreduce_ms(system, calls: int = 32) -> float:
     """ms of one `grad_mean` of tensors shaped as the model's gradients."""
     from ngp_pl_torch import parallel
@@ -127,7 +124,7 @@ def allreduce_ms(system, calls: int = 32) -> float:
     grads = [torch.randn_like(p) for p in system.optimizer.params]
     for _ in range(8):
         parallel.grad_mean(grads)
-    _sync(system.dev)
+    sync(system.dev)
     if system.dev.type == "cuda":
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
@@ -286,7 +283,7 @@ def rank_run(out: str, name: str, dev: str, per_rank: int, warm: int,
     system.freeze_buckets = True
     m = system.step_block()
     float(m["loss"])
-    _sync(system.dev)
+    sync(system.dev)
     t0 = time.perf_counter()
     blocks = max(steps // nb, 1)
     for _ in range(blocks):

@@ -36,3 +36,26 @@ def check_current(dev: torch.device) -> None:
             f"tensors on {dev}, but the current CUDA device is "
             f"cuda:{torch.cuda.current_device()}: the kernels launch on the "
             f"current device (torch.cuda.set_device)")
+
+
+def sync(dev) -> None:
+    """The fence of the port's host clocks: wait until the card has run
+    everything queued on `dev` (a device or its name); nothing on the CPU,
+    whose work is done when its call returns."""
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def card_line(dev) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them (first card), or "cpu"
+    for a CPU run, so that every reading names where it was taken."""
+    import subprocess
+
+    if torch.device(dev).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]

@@ -7,7 +7,11 @@ invisible, then one warmup density refresh over every cell.  With
 --weight_path it loads a slim checkpoint in the JAX package's key format.
 Each test view is rendered through the round renderer and scored with
 PSNR/SSIM against the scene's ground truth; FPS is frames over the fenced
-wall time of the scored renders, after one untimed warm-up frame.  With
+wall time of the scored renders, after one untimed warm-up frame.  Then,
+as the root eval.py's timing loop (:45-62; test.ipynb), test pose 0 is
+rendered once more to warm and --fps_frames (5) times, each frame fenced;
+its FPS is `EvalResult.fps_loop` and the JAX script's line "render: X FPS
+at WxH (S samples/ray)".  With
 --mesh_path the density is queried on a --mesh_resolution^3 lattice over
 the scene box (`NGP.density`, so K1, or K3 at F=2, on the card) and the
 surface at sigma = --mesh_threshold is written as OBJ (a path ending in
@@ -40,7 +44,7 @@ from ngp_pl_torch.config import (
     config_from_args,
 )
 from ngp_pl_torch.datasets import dataset_dict
-from ngp_pl_torch.device import resolve_device
+from ngp_pl_torch.device import resolve_device, sync
 from ngp_pl_torch.models.ngp import NGP
 from ngp_pl_torch.models.occupancy import (
     init_grid_state,
@@ -63,6 +67,10 @@ from ngp_pl_torch.utils.mesh import (
 DENSITY_THRESHOLD = 0.01 * MAX_SAMPLES / math.sqrt(3.0)
 
 
+# frames of the timing loop on test pose 0 (the root eval.py's default)
+FPS_FRAMES = 5
+
+
 @dataclass
 class EvalResult:
     psnr: float
@@ -75,16 +83,14 @@ class EvalResult:
     ngp: NGP
     occ_grid: torch.Tensor
     mesh: Optional[Dict] = None     # `write_mesh`'s record, --mesh_path
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    fps_loop: Optional[float] = None     # the --fps_frames loop's FPS
+    fps_loop_samples_per_ray: Optional[float] = None
 
 
 @torch.no_grad()
 def evaluate(tcfg: TrainConfig, device="cuda",
-             max_images: Optional[int] = None) -> EvalResult:
+             max_images: Optional[int] = None,
+             fps_frames: int = FPS_FRAMES) -> EvalResult:
     dev = resolve_device(device)
     cfg, rcfg = tcfg.ngp_config(), tcfg.render_config()
     ds_cls = dataset_dict[tcfg.dataset_name]
@@ -121,10 +127,10 @@ def evaluate(tcfg: TrainConfig, device="cuda",
     for idx in range(n):
         item = test_ds.test_item(idx)
         pose = torch.from_numpy(item["pose"]).to(dev)
-        _sync(dev)
+        sync(dev)
         t0 = time.perf_counter()
         out = renderer.render_pose(occ_grid, dirs, pose)
-        _sync(dev)
+        sync(dev)
         seconds += time.perf_counter() - t0
         samples += out["total_samples"]
         rounds += out["rounds"]
@@ -136,10 +142,23 @@ def evaluate(tcfg: TrainConfig, device="cuda",
         images.append(pred)
         opacities.append(out["opacity"].reshape(h, w))
     scored = len(psnrs) or math.nan
-    return EvalResult(
+    res = EvalResult(
         psnr=sum(psnrs) / scored, ssim=sum(ssims) / scored, fps=n / seconds,
         samples_per_ray=samples / (n * w * h), rounds_per_frame=rounds / n,
         images=images, opacities=opacities, ngp=ngp, occ_grid=occ_grid)
+    if fps_frames > 0:
+        # the root eval.py:45-62: test pose 0, one warm frame, then
+        # `fps_frames` frames, each ending in a fence
+        pose = torch.from_numpy(test_ds.poses[0]).to(dev)
+        renderer.render_pose(occ_grid, dirs, pose)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(fps_frames):
+            out = renderer.render_pose(occ_grid, dirs, pose)
+            sync(dev)
+        res.fps_loop = fps_frames / (time.perf_counter() - t0)
+        res.fps_loop_samples_per_ray = out["total_samples"] / (w * h)
+    return res
 
 
 @torch.no_grad()
@@ -151,14 +170,14 @@ def write_mesh(ngp: NGP, path: str, resolution: int, level: float) -> Dict:
     query and of the march."""
     dev = ngp.hash_table.device
     scale = ngp.cfg.scale
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     values = density_grid_query(ngp.density, resolution, scale, device=dev)
-    _sync(dev)
+    sync(dev)
     t1 = time.perf_counter()
     verts, faces = marching_tetrahedra(values, level)
     verts = to_world(verts, resolution, scale)
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     save = save_mesh_obj if path.endswith(".obj") else save_mesh_ply
     save(path, verts, faces)
@@ -172,6 +191,9 @@ def main(argv=None):
     parser.add_argument("--max_images", type=int, default=None,
                         help="score only the first N test views")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--fps_frames", type=int, default=FPS_FRAMES,
+                        help="frames of the FPS timing loop on test pose 0 "
+                        "(test.ipynb); 0 skips it")
     parser.add_argument("--mesh_path", type=str, default=None,
                         help="write an OBJ/PLY isosurface mesh here")
     parser.add_argument("--mesh_resolution", type=int, default=256)
@@ -179,12 +201,16 @@ def main(argv=None):
                         help="sigma iso level (test.ipynb uses ~20)")
     args = parser.parse_args(argv)
     tcfg = config_from_args(args)
-    res = evaluate(tcfg, device=args.device, max_images=args.max_images)
+    res = evaluate(tcfg, device=args.device, max_images=args.max_images,
+                   fps_frames=args.fps_frames)
     h, w = res.images[0].shape[:2]
     print(f"test: psnr={res.psnr:.4f} ssim={res.ssim:.4f}")
-    print(f"render: {res.fps:.2f} FPS at {w}x{h} "
+    print(f"views: {res.fps:.2f} FPS at {w}x{h} "
           f"({res.samples_per_ray:.1f} samples/ray, "
           f"{res.rounds_per_frame:.1f} rounds/frame)")
+    if res.fps_loop is not None:
+        print(f"render: {res.fps_loop:.2f} FPS at {w}x{h} "
+              f"({res.fps_loop_samples_per_ray:.1f} samples/ray)")
     if args.mesh_path:
         res.mesh = write_mesh(res.ngp, args.mesh_path, args.mesh_resolution,
                               args.mesh_threshold)

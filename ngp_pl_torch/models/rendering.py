@@ -127,16 +127,48 @@ def _default_chain(cfg, rcfg) -> int:
     return rcfg.max_samples * (1 if cfg.exp_step_factor == 0 else 2)
 
 
+def march_train(cfg, rcfg: RenderConfig, rays_o, rays_d, noise, win_rows, *,
+                layout: str, slots: Optional[int] = None,
+                chain_length: int = 0, occ_grid=None):
+    """The train march of `render_rays_train` (`layout="strided"`, `slots`
+    samples a ray) and `render_rays_train_csr` (`layout="csr"`, a pool of
+    N * `slots`), without autograd; `slots` defaults to
+    `rcfg.train_pool_mult`, `chain_length` to `_default_chain`.  The
+    strided march takes `win_rows` or `occ_grid` as the JAX package's
+    dispatch does; into the pool, the 8-step windowed march with `win_rows`
+    under one cascade and uniform steps, otherwise `march_rays_train` on
+    `occ_grid` (the two-window chain where `win_rows` is given)."""
+    hits = scene_hits(rays_o, rays_d, cfg.scale)
+    kw = dict(scale=cfg.scale, grid_size=cfg.grid_size,
+              max_samples=rcfg.max_samples,
+              chain_length=chain_length or _default_chain(cfg, rcfg))
+    slots = slots or rcfg.train_pool_mult
+    with torch.no_grad():
+        if layout == "strided":
+            return march_rays_train_strided(
+                rays_o, rays_d, hits, noise, win_rows, n_samples=slots,
+                cascades=cfg.cascades, exp_step_factor=cfg.exp_step_factor,
+                occ_grid=occ_grid, **kw)
+        pool_size = rays_o.shape[0] * slots
+        if (win_rows is not None and cfg.cascades == 1
+                and cfg.exp_step_factor == 0.0):
+            return march_rays_train_window(rays_o, rays_d, hits, noise,
+                                           win_rows, pool_size=pool_size,
+                                           **kw)
+        return march_rays_train(
+            rays_o, rays_d, hits, occ_grid, noise, cascades=cfg.cascades,
+            exp_step_factor=cfg.exp_step_factor, pool_size=pool_size,
+            win_rows=win_rows, **kw)
+
+
 def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                           rcfg: RenderConfig, pool_mult: Optional[int] = None,
                           chain_length: int = 0, occ_grid=None,
                           exposure: Optional[torch.Tensor] = None
                           ) -> Dict[str, torch.Tensor]:
-    """Differentiable train render into the CSR pool (rendering.py:186-305).
-    With `win_rows` under one cascade and uniform steps the 8-step windowed
-    march (the caller checks `segment_march_dmax_ok`); otherwise
-    `march_rays_train` on `occ_grid`, with the two-window chain where
-    `win_rows` is given (the caller checks `window_march_mc_ok`).
+    """Differentiable train render into the CSR pool (rendering.py:186-305),
+    marched by `march_train` (the caller checks `segment_march_dmax_ok`
+    for the windowed march, `window_march_mc_ok` for the chain).
     Gradients reach the field's parameters and, through the positions
     o + t * d (t held fixed: only the march runs without autograd) and the
     directions, the rays.  `exposure` (N, 1) goes to each ray's samples
@@ -144,23 +176,9 @@ def render_rays_train_csr(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     march's demand statistics."""
     cfg = ngp.cfg
     N = rays_o.shape[0]
-    hits = scene_hits(rays_o, rays_d, cfg.scale)
-    chain = chain_length or _default_chain(cfg, rcfg)
-    pool_size = N * (pool_mult or rcfg.train_pool_mult)
-    with torch.no_grad():
-        if (win_rows is not None and cfg.cascades == 1
-                and cfg.exp_step_factor == 0.0):
-            m = march_rays_train_window(
-                rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
-                grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-                pool_size=pool_size, chain_length=chain)
-        else:
-            m = march_rays_train(
-                rays_o, rays_d, hits, occ_grid, noise,
-                cascades=cfg.cascades, scale=cfg.scale,
-                exp_step_factor=cfg.exp_step_factor,
-                grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-                pool_size=pool_size, chain_length=chain, win_rows=win_rows)
+    m = march_train(cfg, rcfg, rays_o, rays_d, noise, win_rows, layout="csr",
+                    slots=pool_mult, chain_length=chain_length,
+                    occ_grid=occ_grid)
     ridx = torch.clamp(m.ray_idx, 0, N - 1)
     o, d = rays_o[ridx], rays_d[ridx]
     xyz = _fma(m.ts[:, None], d, o)
@@ -184,8 +202,7 @@ def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
                       exposure: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
     """Differentiable train render into the strided (N, S) layout
-    (rendering.py:103-183); the march takes `win_rows` or `occ_grid` as
-    the JAX package's dispatch does (`march_rays_train_strided`).  A ray
+    (rendering.py:103-183), marched by `march_train`.  A ray
     with more than S occupied samples is cut by the march and left out of
     the loss (`loss_mask`): a partial render would bias it towards its
     entry slab.  Invalid slots sit at their ray's origin (t = 0) with zero
@@ -193,14 +210,9 @@ def render_rays_train(ngp, win_rows, rays_o, rays_d, noise, bg_rgb, *,
     (N, 1) is per ray."""
     cfg = ngp.cfg
     S = n_samples or rcfg.train_pool_mult
-    hits = scene_hits(rays_o, rays_d, cfg.scale)
-    with torch.no_grad():
-        m = march_rays_train_strided(
-            rays_o, rays_d, hits, noise, win_rows, scale=cfg.scale,
-            grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
-            n_samples=S, chain_length=chain_length or _default_chain(
-                cfg, rcfg), cascades=cfg.cascades,
-            exp_step_factor=cfg.exp_step_factor, occ_grid=occ_grid)
+    m = march_train(cfg, rcfg, rays_o, rays_d, noise, win_rows,
+                    layout="strided", slots=S, chain_length=chain_length,
+                    occ_grid=occ_grid)
     xyz = _fma(m.ts[..., None], rays_d[:, None, :], rays_o[:, None, :])
     sigmas, rgbs = ngp.forward_rays(xyz, rays_d, exposure=exposure)
     out = composite_train_strided(sigmas, rgbs, m.deltas, m.ts, m.valid,
