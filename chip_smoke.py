@@ -49,11 +49,20 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            launch; then train_reference again from the trained state on
            4 batches, each beside two witnesses against the CPU: the card's
            step with K7, and with every kernel, run as its plain version;
-           K1 alone is held to the larger of the limit and its own witness
-           (the plain step with every bf16 rounding of h1 flipped that
-           K1's error could flip), and a step past the limit passes only
-           with K1 alone so held and the other kernels within the limit
-           against K1 alone
+           K1 alone passes within the limit against the plain versions'
+           step, or with its h1 and feats within K1_TOL of the plain ones
+           on every call and the plain step that takes K1's bf16 roundings
+           of h1 within the limit of it (`h1_rounded_as`); K7 passes on
+           every call of the step with K1 and K7 with its bf16 hidden
+           values, read back through probe weights, within
+           K7_ROUNDED_TOL's window of the plain tail that takes them and
+           its outputs within K7_ROUNDED_TOL of that tail's
+           (`k7_by_rounding`); a step past the limit passes only with K1
+           alone so held and the other kernels within the limit against
+           K1 alone, or K8 and K2+K5 within it against the step with K1
+           and K7; the witness of K1's error (the plain step with every
+           bf16 rounding of h1 flipped that K1's error could flip) is
+           logged beside and decides nothing
   trained_render  test view 0 at 800x800 of the trained field: FPS,
            samples/ray, rounds, PSNR
   profile  one more 16-step block under torch.profiler: K1, K7, K2+K5, K8,
@@ -116,6 +125,20 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            timed frames); a 1024-ray crop of that frame with the kernels
            on the card against the plain versions on the CPU
            (reference_crop's limits); one more frame profiled by kernel
+  test_renderer, host_rounds  on fps's trained system and frame at T
+           1e-2, the JAX package's two other renderers (`TestRenderer`,
+           one pass a chunk: chunk 16,384, pool x64, K1 and K7 on
+           1,048,576 samples; `HostRoundRenderer`, its host loop): fenced
+           frames, samples per ray, rounds; K1 and K7 must launch; a
+           1024-ray crop against the CPU's plain versions within 5e-3
+  fps_ablate, debug_fps, fps_sweep, tune_fps, micro_march  the JAX
+           repository's serving and march probes on that system and frame
+           (`serving_paths`): the full frame against a constant field (K1
+           and K7 launch in the first, never in the second), the frame
+           round by round (its rounds and samples equal to the round
+           renderer's at chunk 65,536), five bucket ladders, four
+           schedules and four one-pass configurations, the windowed
+           march's stages and the compaction's steps (wall and device ms)
   eval_fps  ngp_pl_torch.eval --fps_frames 5 --max_images 1 from the
            resumed flagship's slim checkpoint: the "render:" line and
            EvalResult.fps_loop
@@ -192,6 +215,7 @@ or run outside the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -222,6 +246,14 @@ K1_TOL = 1e-5                  # max |h1 - plain| / max |plain|, also K3
 # samples; an f16-rounded r2 reads 5.6e-3, an unrounded h 1.1e-2.
 K7_TOL = 4e-3                  # max |rgb - plain| and max |log sigma - plain|,
 #                                against both plain versions
+# K7 on a trained step against the plain tail that takes its bf16
+# roundings of h, relu(z1) and relu(z2) (`k7_by_rounding`): each hidden
+# value it rounds otherwise than the plain tail lies within this of the
+# layer's max |plain| of a rounding midpoint, and its rgb and log sigma lie
+# within this of their max of that tail's.  As K1_TOL: exact bf16 products
+# summed in f32 in another order, nothing else (<= 2.7e-7 and no value
+# outside on the H100, PERF.md).
+K7_ROUNDED_TOL = 1e-5
 # The table-gradient kernels (K2 + K5, K4) round where their plain version
 # does (bf16 g and w1, bf16 products, and at F=4 bf16 corner weights); the
 # f32 atomics add in another order, and a feature gradient that differs in
@@ -711,11 +743,12 @@ def reference_crop(torch, res, tcfg, n_rays: int = 1024):
 
 
 def _crop_vs_cpu(torch, ngp, occ_grid, rcfg, directions, pose, w,
-                 n_rays: int = 1024):
+                 n_rays: int = 1024, make=None):
     """`n_rays` rays of the frame's centre (32 rows) through the round
-    renderer with `rcfg`, on the card with the kernels and on the CPU with
-    the plain versions, from the same parameters and grid: rgb and opacity
-    within 5e-3 (`reference_crop`'s limit)."""
+    renderer with `rcfg` (or the renderer `make(model)` builds), on the
+    card with the kernels and on the CPU with the plain versions, from the
+    same parameters and grid: rgb and opacity within 5e-3
+    (`reference_crop`'s limit)."""
     from ngp_pl_torch.models.ngp import NGP
     from ngp_pl_torch.models.rendering import RoundRenderer
 
@@ -727,9 +760,10 @@ def _crop_vs_cpu(torch, ngp, occ_grid, rcfg, directions, pose, w,
     ro = pose[:, 3].expand(rd.shape).contiguous()
     cpu_ngp = NGP(ngp.cfg, device="cpu")
     cpu_ngp.load_params(ngp.params_numpy())
+    make = make or (lambda model: RoundRenderer(model, rcfg))
     outs = []
     for model, dev in ((ngp, "cuda"), (cpu_ngp, "cpu")):
-        r = RoundRenderer(model, rcfg)
+        r = make(model)
         outs.append(r.render_image(occ_grid.to(dev), ro.to(dev),
                                    rd.to(dev)))
     gpu, cpu = outs
@@ -1097,6 +1131,41 @@ def h1_rounded_as(torch, key, seen: dict):
         he.hash_encode_fwd_plain = real
 
 
+@contextlib.contextmanager
+def k7_by_rounding(torch, seen: dict):
+    """Within the block the plain field tail returns K7's own sigma and rgb
+    (launched uncounted), and `seen` gathers over the calls how they
+    compare with the plain tail that takes K7's bf16 roundings of its
+    hidden layers (`field_tail_gates.tail_rounded_as`: K7 launched again
+    on probe weights): the hidden values K7 rounds outside
+    K7_ROUNDED_TOL's window (`out_of_window`), those it rounds to the
+    other side (`flips`), those too small to read (`unread`), and the
+    largest error of its rgb and log sigma (`max_rel_err`).  Enter it
+    before `plain_on_card`, which takes the plain tail as it finds it."""
+    from ngp_pl_torch.benchmarking import field_tail_gates as ftg
+    from ngp_pl_torch.ops import field_tail as ft
+
+    real = ft.field_tail_plain
+    seen.update(out_of_window=0, flips=0, unread=0, max_rel_err=0.0,
+                calls=0)
+
+    def k7(h1, sh, w2, wr1, wr2, wr3):
+        _, got = ftg.tail_rounded_as(
+            lambda *a: ft.launch_k7(*a), h1, sh, w2, wr1, wr2, wr3,
+            K7_ROUNDED_TOL)
+        for k in ("out_of_window", "flips", "unread"):
+            seen[k] += got[k]
+        seen["max_rel_err"] = max(seen["max_rel_err"], got["max_rel_err"])
+        seen["calls"] += 1
+        return ft.launch_k7(h1, sh, w2, wr1, wr2, wr3)
+
+    ft.field_tail_plain = k7
+    try:
+        yield
+    finally:
+        ft.field_tail_plain = real
+
+
 # what must be identical in two train steps of one layout from one state:
 # the pool, the strided block, or (rounds) what the rounds decided per ray
 STEP_POOL = {"csr": ("ts", "ray_idx"), "strided": ("ts", "valid"),
@@ -1192,7 +1261,8 @@ def explicit_batch(torch, system, seed, n_rays, exposure=False):
 def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                     n_rays=2048, alone=(), alone_tol=None,
                     cpu_floor_by_witness=False, encode_floor_by_witness=False,
-                    encode_by_rounding=False, exposure=False):
+                    encode_by_rounding=False, witness_reading=False,
+                    exposure=False, check=True):
     """One train step's loss and gradients from the system's state on the
     card (kernels), against the same step on the CPU (plain versions) and
     on the card with every kernel replaced by its plain version; same batch,
@@ -1229,20 +1299,33 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     `card_tol` itself (`card_gate`).  No other kernel, and no step, is
     held to the witness.
 
-    With `encode_by_rounding` (the disk scene's fitted state, where the
-    encode kernel alone has read up to 2.4x its witness) the encode kernel
+    With `encode_by_rounding` (the fitted flagship and disk scene, where
+    the encode kernel alone has read up to 2.4x its witness) the encode kernel
     alone is held to `card_tol` against the plain versions' step, or else
     against the plain versions' step whose h1 takes the encode kernel's
     bf16 roundings (`h1_rounded_as`), on which every call of that step
     also holds the kernel's h1 and feats within K1_TOL of the plain ones:
     the kernel then moves the step by nothing but bf16 roundings of values
     that it computed within its limit.  A step past `card_tol` is held as
-    two parts as above (`card_gate`).
+    two parts as above (`card_gate`).  With K7 on the path, K7 is also
+    held by its own error on every call of the step with the encode
+    kernel and K7, the backward kernels plain (`k7_by_rounding`,
+    `tail_rounded`): its hidden values before rounding and its outputs
+    within K7_ROUNDED_TOL of the plain tail that takes its bf16 roundings.
+    The other kernels' part of `card_gate` may then instead be held as
+    the backward kernels (K8, K2+K5) against that step
+    (`vs_encode_and_k7_on_card`) to `card_tol`: at a fitted state the loss
+    (~5e-5) reads K7's f32 sums in another order at ~1e-4 of itself.  With
+    `witness_reading` the witness `witness_h1_flips` is computed and
+    logged beside that gate (with the
+    encode kernel alone over it, `alone_over_witness`, and the verdict the
+    witness gate would give, `witness_gate_pass`) and decides nothing.
 
     On the HDR and pose paths the tail's weight gradients are bf16
     (`_step_err`'s `stepped`), and with pose refinement dR and dT are
     gradients of the step too; `exposure` gives each batch an exposure
-    column (`explicit_batch`)."""
+    column (`explicit_batch`).  With `check` a failed gate raises;
+    without, the record says so (`passed`)."""
     from ngp_pl_torch.models.ngp import NGP
 
     cpu_ngp = NGP(system.cfg, device="cpu",
@@ -1279,13 +1362,15 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
         brief = ("loss_rel_err", "grad_rel_err_max", "grad_rel_err_gate",
                  "tail_grad_rel_err_max", "grad_l2_err_max")
         encode, flips, rest = (path or (None,))[0], None, None
-        rounded = rounding = None
+        rounded = rounding = tail = None
+        tail_ok = False
+        encode_ok = True
         if encode_by_rounding:
             rounded = {}
             with h1_rounded_as(torch, encode, rounded), plain_on_card(*path):
                 attributed = _train_step_on(torch, system, system.ngp,
                                             system.dev, batch)
-        if encode_floor_by_witness:
+        if encode_floor_by_witness or witness_reading:
             with h1_flips(torch), plain_on_card(*path):
                 flips = {k: v for k, v in step_err(
                     torch, names, _train_step_on(
@@ -1305,17 +1390,34 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
             if key in alone:
                 failed |= not within(vs_alone[key], alone_tol)
             if key == encode and flips is not None:
-                failed |= not within(vs_alone[key], encode_tol)
+                witness_ok = within(vs_alone[key], encode_tol)
+                failed |= encode_floor_by_witness and not witness_ok
+                encode_ok = witness_ok
                 rest = step_err(torch, names, card, one)
             if key == encode and rounded is not None:
                 rounding = {k: v for k, v in step_err(
                     torch, names, one, attributed).items()
                     if k in brief + ("pool_identical",)}
-                failed |= not (within(vs_alone[key], card_tol) or (
+                rounding_ok = within(vs_alone[key], card_tol) or (
                     rounded["h1_max_rel_err"] <= K1_TOL
                     and rounded["feats_max_rel_err"] <= K1_TOL
-                    and within(rounding, card_tol)))
+                    and within(rounding, card_tol))
+                failed |= not rounding_ok
+                encode_ok = rounding_ok
                 rest = step_err(torch, names, card, one)
+                if "K7" in path:
+                    tail = {}
+                    with k7_by_rounding(torch, tail), plain_on_card(
+                            *(k for k in path if k != key)):
+                        fwd = _train_step_on(
+                            torch, system, system.ngp, system.dev, batch)
+                    rest_tail = {k: v for k, v in step_err(
+                        torch, names, card, fwd).items()
+                        if k in brief + ("pool_identical",)}
+                    k7_ok = (tail["out_of_window"] == 0
+                             and tail["max_rel_err"] <= K7_ROUNDED_TOL)
+                    failed |= not k7_ok
+                    tail_ok = k7_ok and within(rest_tail, card_tol)
         out = dict(seed=seed, samples=card["samples"],
                    loss_card=card["loss"], loss_cpu=ref["loss"],
                    vs_cpu=vs_cpu, vs_plain_on_card=vs_card,
@@ -1326,11 +1428,20 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                    witness_all_plain_vs_cpu={
                        k: v for k, v in step_err(torch, names, plain,
                                                   ref).items() if k in brief},
-                   **({"witness_h1_flips": flips, "encode_tol": encode_tol}
+                   **({"witness_h1_flips": flips, "encode_tol": encode_tol,
+                       "alone_over_witness": (
+                           vs_alone[encode]["grad_rel_err_max"]
+                           / flips["grad_rel_err_max"]),
+                       "witness_gate_pass": witness_ok}
                       if flips else {}),
                    **({"encode_rounded": rounded,
-                       "vs_rounded_plain_on_card": rounding}
+                       "vs_rounded_plain_on_card": rounding,
+                       "rounding_gate_pass": rounding_ok}
                       if rounded is not None else {}),
+                   **({"tail_rounded": tail, "k7_gate_pass": k7_ok,
+                       "vs_encode_and_k7_on_card": rest_tail,
+                       "tail_gate_pass": tail_ok}
+                      if tail is not None else {}),
                    **({"vs_encode_alone_on_card": {
                        k: v for k, v in rest.items()
                        if k in brief + ("pool_identical",)}}
@@ -1349,14 +1460,19 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                                "card")
             cpu_ok = True
         card_ok = within(vs_card, card_tol)
-        if not card_ok and rest is not None and within(rest, card_tol):
-            held = ("witness_h1_flips" if flips is not None else
+        rest_ok = rest is not None and within(rest, card_tol)
+        if not card_ok and rest is not None and encode_ok and (
+                rest_ok or tail_ok):
+            held = ("witness_h1_flips" if rounded is None else
                     "the limit against the plain versions with its bf16 "
                     "roundings of h1")
+            against = (f"{encode} alone" if rest_ok else
+                       f"{encode} and K7, K7 within K7_ROUNDED_TOL of "
+                       f"the plain tail with its bf16 roundings")
             out["card_gate"] = (f"past the limit against the plain versions "
                                 f"on the card: {encode} alone within "
                                 f"{held}, the other kernels "
-                                f"within the limit against {encode} alone")
+                                f"within the limit against {against}")
             card_ok = True
         failed |= not (cpu_ok and card_ok)
         batches.append(out)
@@ -1380,26 +1496,31 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                    worst("vs_plain_on_card", "grad_rel_err_max")],
                witness_all_plain_vs_cpu_max=[
                    worst("witness_all_plain_vs_cpu", "loss_rel_err"),
-                   worst("witness_all_plain_vs_cpu", "grad_rel_err_max")],
-               **({"witness_h1_flips_max": [
-                   worst("witness_h1_flips", "loss_rel_err"),
-                   worst("witness_h1_flips", "grad_rel_err_max")],
-                   "vs_encode_alone_on_card_max": [
-                       worst("vs_encode_alone_on_card", "loss_rel_err"),
-                       worst("vs_encode_alone_on_card", "grad_rel_err_max")]}
-                  if encode_floor_by_witness else {}),
-               **({"vs_rounded_plain_on_card_max": [
-                   worst("vs_rounded_plain_on_card", "loss_rel_err"),
-                   worst("vs_rounded_plain_on_card", "grad_rel_err_max")],
-                   "vs_encode_alone_on_card_max": [
-                       worst("vs_encode_alone_on_card", "loss_rel_err"),
-                       worst("vs_encode_alone_on_card", "grad_rel_err_max")],
-                   "encode_rounded_max": {
-                       k: max(b["encode_rounded"][k] for b in batches)
-                       for k in batches[0]["encode_rounded"]}}
-                  if encode_by_rounding else {}),
-               batches=batches)
-    if failed:
+                   worst("witness_all_plain_vs_cpu", "grad_rel_err_max")])
+    if encode_floor_by_witness or witness_reading:
+        out["witness_h1_flips_max"] = [
+            worst("witness_h1_flips", "loss_rel_err"),
+            worst("witness_h1_flips", "grad_rel_err_max")]
+    if encode_by_rounding:
+        out.update(vs_rounded_plain_on_card_max=[
+            worst("vs_rounded_plain_on_card", "loss_rel_err"),
+            worst("vs_rounded_plain_on_card", "grad_rel_err_max")],
+            encode_rounded_max={
+                k: max(b["encode_rounded"][k] for b in batches)
+                for k in batches[0]["encode_rounded"]})
+    if encode_floor_by_witness or witness_reading or encode_by_rounding:
+        out["vs_encode_alone_on_card_max"] = [
+            worst("vs_encode_alone_on_card", "loss_rel_err"),
+            worst("vs_encode_alone_on_card", "grad_rel_err_max")]
+    if "tail_rounded" in batches[0]:
+        out.update(vs_encode_and_k7_on_card_max=[
+            worst("vs_encode_and_k7_on_card", "loss_rel_err"),
+            worst("vs_encode_and_k7_on_card", "grad_rel_err_max")],
+            tail_rounded_max={
+                k: max(b["tail_rounded"][k] for b in batches)
+                for k in batches[0]["tail_rounded"]})
+    out.update(passed=not failed, batches=batches)
+    if failed and check:
         raise AssertionError(f"card vs CPU train step disagrees: {out}")
     return out
 
@@ -1558,7 +1679,7 @@ def ckpt_roundtrip(torch, res, tcfg):
 
 def train_path(torch, tcfg, card, suffix, trained_batches,
                seeded_tol=STEP_TOL, alone=(), at_step=True,
-               seeded_cpu_tol=None, encode_floor_by_witness=False,
+               seeded_cpu_tol=None, encode_by_rounding=False,
                slim_path=None):
     """The train path of one geometry: the seeded step against the CPU
     (limit `seeded_cpu_tol`, by default `seeded_tol`) and the plain
@@ -1567,8 +1688,9 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     `trained_batches`, the trained field's 800x800 render and a profiled
     block.  The kernels named in `alone` are held, each alone, to STEP_TOL
     (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card; with `encode_floor_by_witness` the trained step's encode
-    kernel is held by its own witness (`train_reference`).  Then, if
+    on the card; with `encode_by_rounding` the trained step's encode
+    kernel is held by its own error and its bf16 roundings of h1, its
+    witness `witness_h1_flips` logged beside (`train_reference`).  Then, if
     `at_step`, the encode kernel and the
     table-gradient kernel on the input of one more train step
     (`table_grad_inputs.capture`: the CSR pool's positions and gradients,
@@ -1598,7 +1720,8 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
                            TRAINED_KERNEL_TOL, seeds=trained_batches,
                            alone=alone, alone_tol=TRAINED_KERNEL_TOL,
                            cpu_floor_by_witness=system.layout == "rounds",
-                           encode_floor_by_witness=encode_floor_by_witness)})
+                           encode_by_rounding=encode_by_rounding,
+                           witness_reading=encode_by_rounding)})
     log({"phase": "trained_render" + suffix, "card": card,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
@@ -2779,7 +2902,8 @@ def fps_path(torch, dev="cuda"):
     crop of that frame on the card against the plain versions on the CPU
     (`_crop_vs_cpu`, reference_crop's limits) and one more frame under
     torch.profiler, by kernel (`_profile_render`).  `dev="cpu"` rehearses
-    the phase, whose launch checks then fail by design."""
+    the phase, whose launch checks then fail by design.  Returns the
+    phase's record and the trained system."""
     from ngp_pl_torch.benchmarking import bench_fps
 
     counters = _counters()
@@ -2804,20 +2928,168 @@ def fps_path(torch, dev="cuda"):
             and math.isfinite(loss) and rec["fps"] > 0
             and bool(torch.isfinite(out["rgb"]).all())):
         raise AssertionError(f"fps: {phase}")
-    dirs, pose = bench_fps.camera(system, FPS_SIZE)
+    dirs, dirs_t, pose_t = bench_fps.frame_inputs(system, FPS_SIZE)
     render = bench_fps.renderer(system.ngp, system.rcfg, dirs,
                                 bench_fps.frame_chunk(FPS_SIZE ** 2))
     occ = system.grid_state.occ_grid
     phase["crop"] = _crop_vs_cpu(torch, system.ngp, occ, render.rcfg, dirs,
-                                 pose, FPS_SIZE)
-    dirs_t = torch.from_numpy(dirs).to(system.dev)
-    pose_t = torch.from_numpy(pose).to(system.dev)
+                                 pose_t.cpu().numpy(), FPS_SIZE)
     phase["profile"] = _profile_render(
         torch, lambda: render.render_pose(occ, dirs_t, pose_t),
         rec["frame_ms"])
-    del system, out
-    torch.cuda.empty_cache()
-    return phase
+    return phase, system
+
+
+SERVING_FRAMES = 2             # timed frames of each new renderer
+SERVING_CROP_CHUNK = 1024      # the one-pass renderer's chunk in its crop
+
+
+def _counted(run):
+    """`run()` with every kernel's count set to 0 just before and read
+    just after: (its result, the launches by kernel)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = run()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def serving_paths(torch, card, system, dev="cuda"):
+    """On `system` (fps_path's: the flagship after FPS_TRAIN_STEPS steps)
+    and bench_fps's 800x800 frame at T 1e-2, each phase counted from 0 at
+    its start and read at its end:
+      test_renderer  `TestRenderer` (chunk 16,384, pool x64: K1 and K7 on
+                     1,048,576 samples a chunk), SERVING_FRAMES fenced
+                     frames after a warm one;
+      host_rounds    `HostRoundRenderer` (the JAX package's host loop), as
+                     test_renderer;
+      each with a 1024-ray crop on the card against the CPU's plain
+      versions (`_crop_vs_cpu`, 5e-3);
+      fps_ablate     the full frame and the constant-field frame: K1 and K7
+                     launch in the first and not at all in the second;
+      debug_fps      the frame round by round (chunk 65,536): its rounds
+                     and samples equal to `RoundRenderer(chunk=65536)`'s;
+      fps_sweep      the JAX script's five ladders;
+      tune_fps       its four schedules, then `--oneshot`'s four
+                     `TestRenderer` configurations;
+      micro_march    the windowed march's stages and the compaction's
+                     steps at the JAX bench's shapes.
+    Every field frame must launch K1 and K7 and give finite colours.
+    Returns the launches by phase."""
+    import dataclasses
+
+    from ngp_pl_torch.benchmarking import (
+        bench_fps,
+        debug_fps,
+        fps_ablate,
+        fps_sweep,
+        micro_march,
+        tune_fps,
+    )
+    from ngp_pl_torch.datasets.ray_utils import get_rays
+    from ngp_pl_torch.models.rendering import HostRoundRenderer, TestRenderer
+    from ngp_pl_torch.ops.ray_march import segment_march_dmax_ok
+
+    dirs, dirs_t, pose_t = bench_fps.frame_inputs(system, FPS_SIZE)
+    rays_o, rays_d = get_rays(dirs_t, pose_t)
+    rays_o = rays_o.contiguous()
+    occ = system.grid_state.occ_grid
+    rcfg = dataclasses.replace(system.rcfg,
+                               test_t_threshold=bench_fps.T_THRESHOLD)
+    window = segment_march_dmax_ok(dirs, scale=system.cfg.scale)
+    pixels = FPS_SIZE ** 2
+    launches = {}
+
+    def fired(lc):
+        return lc["K1"] > 0 and lc["K7"] > 0
+
+    makers = {
+        "test_renderer": lambda m, chunk: TestRenderer(
+            m, rcfg, chunk=chunk, use_window=window),
+        "host_rounds": lambda m, chunk: HostRoundRenderer(m, rcfg)}
+    for name, make in makers.items():
+        render = make(system.ngp, 16384)
+        t0 = time.perf_counter()
+        (dt, out, timed), launches[name] = _counted(
+            lambda: bench_fps.timed(
+                lambda: render.render_image(occ, rays_o, rays_d), dev,
+                SERVING_FRAMES))
+        rec = dict(card=card, frame_ms=dt * 1e3, fps=1.0 / dt,
+                   samples_per_ray=out["total_samples"] / pixels,
+                   rounds=out.get("rounds"),
+                   mean_opacity=float(out["opacity"].mean()),
+                   launches_timed_frames=timed, launches=launches[name],
+                   seconds=time.perf_counter() - t0,
+                   crop=_crop_vs_cpu(
+                       torch, system.ngp, occ, rcfg, dirs,
+                       pose_t.cpu().numpy(), FPS_SIZE,
+                       make=lambda m: make(m, SERVING_CROP_CHUNK)))
+        log({"phase": name, **rec})
+        if not (fired(timed) and bool(out["rgb"].isfinite().all())):
+            raise AssertionError(f"{name}: {rec}")
+
+    lines = []
+    t0 = time.perf_counter()
+    rec, launches["fps_ablate"] = _counted(
+        lambda: fps_ablate.run(system, FPS_SIZE, emit=lines.append))
+    frames = rec["frames"]
+    log({"phase": "fps_ablate", **rec, "lines": lines,
+         "launches": launches["fps_ablate"],
+         "seconds": time.perf_counter() - t0})
+    if not (fired(frames["full"]["launches"])
+            and frames["const-field"]["launches"] == {"K1": 0, "K7": 0}
+            and all(f["finite"] for f in frames.values())
+            and math.isfinite(rec["field_share"])):
+        raise AssertionError(f"fps_ablate: {rec}")
+
+    lines = []
+    t0 = time.perf_counter()
+    rec, launches["debug_fps"] = _counted(
+        lambda: debug_fps.run(system, FPS_SIZE, emit=lines.append))
+    ref = bench_fps.renderer(system.ngp, system.rcfg, dirs,
+                             debug_fps.CHUNK).render_pose(occ, dirs_t, pose_t)
+    rec.update(lines=lines, launches=launches["debug_fps"],
+               round_renderer={k: ref[k] for k in ("rounds",
+                                                   "total_samples")},
+               seconds=time.perf_counter() - t0)
+    log({"phase": "debug_fps", **rec})
+    if not (rec["rounds"] == ref["rounds"]
+            and rec["total_samples"] == ref["total_samples"]
+            and fired(launches["debug_fps"])):
+        raise AssertionError(f"debug_fps: {rec}")
+
+    lines = []
+    t0 = time.perf_counter()
+    rec, launches["fps_sweep"] = _counted(
+        lambda: fps_sweep.run(system, FPS_SIZE, emit=lines.append))
+    log({"phase": "fps_sweep", **rec, "lines": lines,
+         "launches": launches["fps_sweep"],
+         "seconds": time.perf_counter() - t0})
+    if not all(fired(c["launches"]) and c["finite"]
+               for c in rec["configs"].values()):
+        raise AssertionError(f"fps_sweep: {rec}")
+
+    lines = []
+    t0 = time.perf_counter()
+    (sched, oneshot), launches["tune_fps"] = _counted(lambda: (
+        tune_fps.run(system, FPS_SIZE, emit=lines.append),
+        tune_fps.run_oneshot(system, FPS_SIZE, emit=lines.append)))
+    rec = dict(sched, **oneshot, lines=lines, launches=launches["tune_fps"],
+               seconds=time.perf_counter() - t0)
+    log({"phase": "tune_fps", **rec})
+    if not all(fired(c["launches"]) and c["finite"] for c in
+               list(sched["schedules"].values()) + oneshot["oneshot"]):
+        raise AssertionError(f"tune_fps: {rec}")
+
+    t0 = time.perf_counter()
+    rec, launches["micro_march"] = _counted(
+        lambda: micro_march.run(dev, log=io.StringIO()))
+    log({"phase": "micro_march", "card": card, "stages": rec,
+         "launches": launches["micro_march"],
+         "seconds": time.perf_counter() - t0})
+    if not all(v["device_ms"] > 0 and v["wall_ms"] > 0 for v in rec.values()):
+        raise AssertionError(f"micro_march: {rec}")
+    return launches
 
 
 def eval_fps_path(torch, card, slim, dev="cuda"):
@@ -3019,7 +3291,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
     train, at_step = train_path(torch, train_config(), card, "",
-                                TRAINED_BATCHES, encode_floor_by_witness=True)
+                                TRAINED_BATCHES, encode_by_rounding=True)
     for key, rec in at_step.items():
         checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
@@ -3062,9 +3334,15 @@ def main() -> int:
     # the JAX repository's measurement and data scripts, each counted from
     # 0 at its start: render FPS at T 1e-2, the eval FPS loop from the slim
     # checkpoint, the train step stage by stage, EXR input
-    fps = fps_path(torch)
+    fps, system = fps_path(torch)
     launches["fps"] = fps["launches"]
     log({"phase": "fps", **fps})
+    # the JAX package's two other renderers and the JAX repository's
+    # serving and march probes, on the system `fps` trained, each counted
+    # from 0 at its start
+    launches.update(serving_paths(torch, card, system))
+    del system
+    torch.cuda.empty_cache()
     eval_fps = eval_fps_path(torch, card, slim)
     slim_dir.cleanup()
     launches["eval_fps"] = eval_fps["launches"]

@@ -74,17 +74,49 @@ def frame_chunk(pixels: int) -> int:
     return min(131072, 1 << (pixels - 1).bit_length())
 
 
-def renderer(ngp, rcfg, dirs, chunk: int):
+def renderer(ngp, rcfg, dirs, chunk: int, **kw):
     """bench_fps.py's round renderer: windows where `segment_march_dmax_ok`
     holds for `dirs`, and `rcfg` with test_t_threshold 1e-2 (the
-    counterpart of JAX's `t_threshold=1e-2`)."""
+    counterpart of JAX's `t_threshold=1e-2`); `kw` goes to
+    `RoundRenderer` (buckets, debug_const_field, ...)."""
     from ngp_pl_torch.models.rendering import RoundRenderer
     from ngp_pl_torch.ops.ray_march import segment_march_dmax_ok
 
     return RoundRenderer(
         ngp, dataclasses.replace(rcfg, test_t_threshold=T_THRESHOLD),
         chunk=chunk, use_window=segment_march_dmax_ok(dirs,
-                                                      scale=ngp.cfg.scale))
+                                                      scale=ngp.cfg.scale),
+        **kw)
+
+
+def frame_inputs(system, size: int):
+    """(directions (size^2, 3) numpy, directions and pose on the system's
+    device) of the timed frame (`camera`)."""
+    import torch
+
+    dirs, pose = camera(system, size)
+    return (dirs, torch.from_numpy(dirs).to(system.dev),
+            torch.from_numpy(pose).to(system.dev))
+
+
+def timed(render, dev, frames: int):
+    """`render()` once untimed (warm), then `frames` times between two
+    fences (`ngp_pl_torch.device.sync`).  Returns (seconds a frame, the
+    last frame's output, the K1/K7 launches of the timed frames)."""
+    from ngp_pl_torch.device import sync
+    from ngp_pl_torch.ops import field_tail as ft
+    from ngp_pl_torch.ops import hash_encoding as he
+
+    out = render()
+    counters = {"K1": he.hash_encode_fwd_cuda, "K7": ft.field_tail_cuda}
+    before = {k: c.launches for k, c in counters.items()}
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        out = render()
+    sync(dev)
+    return ((time.perf_counter() - t0) / frames, out,
+            {k: c.launches - before[k] for k, c in counters.items()})
 
 
 def run(system, size: int = 800, frames: int = 5) -> dict:
@@ -92,28 +124,14 @@ def run(system, size: int = 800, frames: int = 5) -> dict:
     Returns JAX's record (`RECORD_KEYS`, rounded as bench_fps.py rounds
     them) followed by the unrounded fps and frame ms, the K1/K7 launches
     of the timed frames, the card, and the last frame's output (`out`)."""
-    import torch
+    from ngp_pl_torch.device import card_line
 
-    from ngp_pl_torch.device import card_line, sync
-    from ngp_pl_torch.ops import field_tail as ft
-    from ngp_pl_torch.ops import hash_encoding as he
-
-    dev = system.dev
-    dirs, pose = camera(system, size)
+    dirs, dirs_t, pose_t = frame_inputs(system, size)
     render = renderer(system.ngp, system.rcfg, dirs,
                       frame_chunk(size * size))
-    dirs_t = torch.from_numpy(dirs).to(dev)
-    pose_t = torch.from_numpy(pose).to(dev)
     occ = system.grid_state.occ_grid
-    out = render.render_pose(occ, dirs_t, pose_t)          # warm
-    counters = {"K1": he.hash_encode_fwd_cuda, "K7": ft.field_tail_cuda}
-    before = {k: c.launches for k, c in counters.items()}
-    sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        out = render.render_pose(occ, dirs_t, pose_t)
-    sync(dev)
-    dt = (time.perf_counter() - t0) / frames
+    dt, out, launches = timed(lambda: render.render_pose(occ, dirs_t, pose_t),
+                              system.dev, frames)
     fps = 1.0 / dt
     pixels = size * size
     return {
@@ -126,8 +144,7 @@ def run(system, size: int = 800, frames: int = 5) -> dict:
         "mean_opacity": round(float(out["opacity"].mean()), 4),
         "fps": fps, "frame_ms": dt * 1e3, "frames": frames,
         "samples": out["total_samples"], "t_threshold": T_THRESHOLD,
-        "launches": {k: c.launches - before[k] for k, c in counters.items()},
-        "card": card_line(dev), "out": out}
+        "launches": launches, "card": card_line(system.dev), "out": out}
 
 
 def main(argv=None) -> dict:

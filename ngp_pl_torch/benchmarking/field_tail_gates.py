@@ -10,11 +10,16 @@ above that and below what a wrong kernel reads.  Wrong kernels are stood in
 for by `variant`, the plain math with one deliberate fault each.  One JSON
 line per kernel and size: the f32 plain version's miss, and each wrong
 variant's reading against both plain versions.
+
+`tail_rounded_as` gives the plain tail another implementation's bf16
+roundings of its hidden layers, read back through probe weights:
+chip_smoke.py holds K7 by it on the trained steps (`k7_by_rounding`).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import torch
 
@@ -102,6 +107,111 @@ def variant(wrong, h1, sh, *rest):
         dh1 = torch.where(h1 > 0, dh1, 0.0)
     dwr1 = torch.cat([mm(sh.T, d_z1), mm(h.T, d_z1)], dim=0)
     return dh1, mm(x.T, d_h), dwr1, mm(r1.T, d_z2), mm(r2.T, d_z3)
+
+
+# `tail_rounded_as` reads a value back through a sigmoid of at most
+# READ_SPAN, and its bf16 rounding only where |value| x scale >= READ_MIN,
+# where one bf16 step lies 16x past the f32 sigmoid's resolution; one
+# scale reads 11 binary orders of magnitude, READ_SCALES scales 10 orders
+# apart read a layer down to ~1e-9 of its largest value.
+READ_SPAN = 8.0
+READ_MIN = 4e-3
+READ_SCALES = 3
+
+
+def _probes(layer, idx, w2, wr1, wr2, wr3, scale):
+    """The tail's weights with those past `layer` replaced so that output
+    channel c is `scale` times the bf16 value that the tail feeds on from
+    `layer` ("h", "r1" or "r2": bf16 h, relu(z1), relu(z2)) at column
+    idx[c], exactly: every product has one nonzero factor a power of two
+    and the rest zero, h passes as relu(h) - relu(-h).  New tensors, built
+    on the host."""
+    z = lambda *s: torch.zeros(s, dtype=torch.float32)     # noqa: E731
+    wr3n = z(ft.H_HID, 3)
+    if layer == "r2":
+        for c, j in enumerate(idx):
+            wr3n[j, c] = scale
+        return w2, wr1, wr2, wr3n.to(w2.device)
+    wr2n = z(ft.H_HID, ft.H_HID)
+    if layer == "r1":
+        for c, j in enumerate(idx):
+            wr2n[j, c], wr3n[c, c] = 1.0, scale
+        return w2, wr1, wr2n.to(w2.device), wr3n.to(w2.device)
+    wr1n = z(ft.H_SH + ft.H_GEO, ft.H_HID)
+    for c, j in enumerate(idx):
+        a, b = 2 * c, 2 * c + 1
+        wr1n[ft.H_SH + j, a], wr1n[ft.H_SH + j, b] = 1.0, -1.0
+        wr2n[a, a], wr2n[b, a], wr2n[a, b], wr2n[b, b] = 1.0, -1.0, -1.0, 1.0
+        wr3n[a, c], wr3n[b, c] = scale, -scale
+    return (w2, *(w.to(w2.device) for w in (wr1n, wr2n, wr3n)))
+
+
+def tail_rounded_as(tail, h1, sh, w2, wr1, wr2, wr3, tol):
+    """The plain tail (`field_tail_plain`, f32 sums) with the bf16 roundings
+    of its hidden layers that another implementation `tail` of it (K7)
+    makes on the same inputs, and what that shows of `tail`.
+
+    The plain and the kernel round h, relu(z1) and relu(z2) to bf16 after
+    summing exact products in different orders, so a value near a
+    rounding midpoint can round to the other neighbour and move rgb by
+    ~1e-3.  `tail` is run again on probe weights (`_probes`) that carry
+    each bf16 hidden value it fed on to an rgb output, 3 a launch, read
+    back through the sigmoid; layer by layer the plain tail, fed with the
+    values so read at the layer before, takes them where it rounds
+    otherwise.  Returns ((sigma, rgb), seen): `out_of_window`, the values
+    that lie outside the bf16 roundings of the plain's value +- tol x
+    max |plain| of the layer (the kernel's value before its rounding
+    missed the plain's past tol), `flips`, the values it rounds to the
+    other side, `unread`, those too small to read (there the plain's
+    rounding stands), and `max_rel_err`, the largest of max |rgb - ref|
+    and max |log sigma - ref| of `tail`'s outputs against the returned
+    ones, each of max |ref|."""
+    mm = lambda a, b: _bf(a) @ _bf(b)      # noqa: E731  field_tail_plain's
+    seen = dict(out_of_window=0, flips=0, unread=0)
+
+    def take(layer, pre, relu, ws):
+        act = torch.relu if relu else (lambda t: t)
+        plain = _bf(act(pre))
+        mag, m, n = plain.abs(), float(pre.abs().max()), pre.shape[1]
+        if not m > 0.0:
+            return plain
+        got = torch.zeros_like(pre)
+        read = torch.zeros_like(pre, dtype=torch.bool)
+        top = 2.0 ** math.floor(math.log2(READ_SPAN / float(mag.max())))
+        for i in range(READ_SCALES):
+            scale = top * 2.0 ** (10 * i)
+            pick = (mag * scale >= READ_MIN) & (mag * scale <= READ_SPAN)
+            for c0 in range(0, n, 3):
+                idx = list(range(c0, min(c0 + 3, n)))
+                if not bool(pick[:, idx].any()):
+                    continue
+                p = tail(h1, sh, *_probes(layer, idx, *ws, scale))[1]
+                p = p[:, :len(idx)].double()
+                val = ((torch.log(p) - torch.log1p(-p)) / scale).float()
+                got[:, idx] = torch.where(pick[:, idx], val, got[:, idx])
+            read |= pick
+        got = _bf(got)
+        lo, hi = _bf(act(pre - tol * m)), _bf(act(pre + tol * m))
+        seen["out_of_window"] += int((read & ~((got >= lo) & (got <= hi)))
+                                     .sum())
+        seen["flips"] += int((read & (got != plain)).sum())
+        seen["unread"] += int((~read).sum())
+        return torch.where(read & torch.isfinite(got), got, plain)
+
+    ws = (w2, wr1, wr2, wr3)
+    h = mm(torch.relu(h1), w2)
+    hb = take("h", h, False, ws)
+    z1 = mm(sh, wr1[:ft.H_SH]) + hb @ _bf(wr1[ft.H_SH:])
+    r1 = take("r1", z1, True, ws)
+    r2 = take("r2", r1 @ _bf(wr2), True, ws)
+    sigma = torch.exp(torch.clamp(h[:, 0], -30.0, 30.0))
+    rgb = torch.sigmoid(r2 @ _bf(wr3))
+    got = tail(h1, sh, w2, wr1, wr2, wr3)
+    seen["max_rel_err"] = max(
+        float((got[1] - rgb).abs().max() / rgb.abs().max()),
+        float((torch.log(got[0]) - torch.log(sigma)).abs().max()
+              / torch.log(sigma).abs().max()))
+    return (sigma, rgb), seen
 
 
 def k7_error(got, ref) -> float:

@@ -1,8 +1,10 @@
 """Rendering (counterpart of ngp_pl_tpu/models/rendering.py; reference
 models/rendering.py): the differentiable train renders in the JAX
 package's three layouts (reference rendering.py:121-163) and test-view
-rendering (span pre-pass, cull and the alive-ray round loop,
-`RoundRenderer`, reference rendering.py:46-118).
+rendering: the alive-ray round loop after a span pre-pass and cull
+(`RoundRenderer`, reference rendering.py:46-118), the one-pass chunked
+renderer (`TestRenderer`) and the JAX package's host-loop round renderer
+(`HostRoundRenderer`).
 
 Train render: scene-box hits -> march (the 8-step windowed march for one
 cascade with uniform steps; the general march, `march_rays_train`, with
@@ -45,6 +47,7 @@ from ngp_pl_torch.config import MAX_SAMPLES, NEAR_DISTANCE, SQRT3, RenderConfig
 from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.ops.intersection import ray_aabb_intersect_single
 from ngp_pl_torch.ops.ray_march import (
+    SPAN_SUPER_FACTOR,
     _fma,
     calc_dt,
     march_rays_test_round,
@@ -348,22 +351,45 @@ def render_rays_train_rounds(ngp, win_rows, rays_o, rays_d, noise, bg_rgb,
     }
 
 
-def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:
-    """(slots, n_samples, chain) buckets, largest first: a 2x slot ladder
-    with n_samples growing 8 -> 64 as the alive set shrinks; the first
-    bucket gets a 256-step chain so empty space is crossed in few rounds
-    (rendering.py:644-660, chain rounding :743)."""
-    buckets = []
-    s, ns, first = chunk, max(min_s, 8), True
+def ladder(chunk: int, s0: int = 8, ratio: int = 2, first_chain: int = 256,
+           chain: int = 128) -> List[Tuple[int, int, int]]:
+    """(slots, n_samples, chain) buckets, largest first
+    (benchmarking/fps_sweep.py:29-41): slots shrink by `ratio` from
+    `chunk` down to 1024 while n_samples grows by `ratio` from `s0` to at
+    most 64; the first bucket gets `first_chain`, the others `chain`; a
+    tail of at least 256 slots at 64 samples closes the ladder."""
+    out = []
+    s, ns, first = chunk, s0, True
     while s >= 1024 and ns <= 64:
-        buckets.append((s, ns, 256 if first else 128))
-        s //= 2
-        ns = min(64, ns * 2)
+        out.append((s, ns, first_chain if first else chain))
+        s //= ratio
+        ns = min(64, ns * ratio)
         first = False
-    tail = (min(max(s, 256), chunk), 64, 128)
-    if tail not in buckets:
-        buckets.append(tail)
+    tail = (min(max(s, 256), chunk), 64, chain)
+    if tail not in out:
+        out.append(tail)
+    return out
+
+
+def round_chains(buckets) -> List[Tuple[int, int, int]]:
+    """Each bucket's chain as a round marches it (rendering.py:743): at
+    least 4 n_samples, rounded up to a multiple of 8."""
     return [(s, ns, -(-max(ch, 4 * ns) // 8) * 8) for s, ns, ch in buckets]
+
+
+def bucket_ladder(chunk: int, min_s: int) -> List[Tuple[int, int, int]]:
+    """The default buckets: a 2x slot ladder with n_samples growing from
+    max(min_s, 8) to 64 as the alive set shrinks; the first bucket gets a
+    256-step chain so empty space is crossed in few rounds
+    (rendering.py:644-660), chains rounded as a round marches them."""
+    return round_chains(ladder(chunk, s0=max(min_s, 8)))
+
+
+def _pad_chunk(a: torch.Tensor, chunk: int) -> torch.Tensor:
+    """A short last chunk of rays padded with ones, as the JAX package
+    pads it (a ray from (1, 1, 1) along (1, 1, 1))."""
+    n = a.shape[0]
+    return a if n == chunk else torch.cat([a, a.new_ones((chunk - n, 3))])
 
 
 class RoundRenderer:
@@ -376,16 +402,36 @@ class RoundRenderer:
     `window_march_mc_ok` holds): under multi-cascade or exponential steps
     the rounds then read the two-window chain, whose conservative
     fallbacks add samples; for one cascade with uniform steps the rounds
-    read the grid, whose bits the 8-step windows equal."""
+    read the grid, whose bits the 8-step windows equal.
+
+    The JAX function's tuning arguments, with its meaning and defaults:
+    `max_rounds` a chunk; `t_threshold` (None: the config's test
+    threshold); `buckets`, (slots, n_samples, chain) largest first (None:
+    `bucket_ladder`), whose chains take the ladder's rounding, and a round
+    processes at most its bucket's slots, the first alive rays in ray
+    order, as the JAX package's compaction does; `debug_const_field`,
+    sigma 10 and rgb 0.5 in place of the field, so that a frame runs the
+    march, the scheduling and the compositor without K1 and K7 (cost
+    isolation for `benchmarking/fps_ablate.py`); `span_super_factor`,
+    cells per supercell edge of the span pre-pass."""
 
     def __init__(self, ngp, rcfg: RenderConfig, chunk: int = 131072,
-                 use_window: bool = False):
+                 use_window: bool = False, max_rounds: int = MAX_ROUNDS,
+                 t_threshold: Optional[float] = None, buckets=None,
+                 debug_const_field: bool = False,
+                 span_super_factor: int = SPAN_SUPER_FACTOR):
         cfg = ngp.cfg
         self.ngp = ngp
         self.rcfg = rcfg
         self.chunk = chunk
-        self.buckets = bucket_ladder(
-            chunk, 1 if cfg.exp_step_factor == 0 else 4)
+        self.max_rounds = max_rounds
+        self.thr = rcfg.test_t_threshold if t_threshold is None \
+            else t_threshold
+        self.buckets = (bucket_ladder(
+            chunk, 1 if cfg.exp_step_factor == 0 else 4) if buckets is None
+            else round_chains(buckets))
+        self.const_field = debug_const_field
+        self.super_factor = span_super_factor
         self.use_span = cfg.cascades == 1 and cfg.exp_step_factor == 0.0
         self.use_window_mc = use_window and not self.use_span
         self._grid_cache: list = []
@@ -396,7 +442,8 @@ class RoundRenderer:
         if not (self._grid_cache and self._grid_cache[0] is occ_grid):
             if self.use_span:
                 packed = occupied_span_prep(
-                    occ_grid, grid_size=self.ngp.cfg.grid_size)
+                    occ_grid, grid_size=self.ngp.cfg.grid_size,
+                    super_factor=self.super_factor)
             else:
                 packed = (occupancy_windows(occ_grid) if self.use_window_mc
                           else None)
@@ -408,7 +455,10 @@ class RoundRenderer:
         return self.buckets[branch]
 
     @torch.no_grad()
-    def _render_chunk(self, occ_grid, rays_o, rays_d, t_start, t_end):
+    def _render_chunk(self, occ_grid, rays_o, rays_d, t_start, t_end,
+                      on_round=None):
+        """The round loop over one chunk.  `on_round(bucket, n_alive,
+        valid, n_eff)`, where given, sees each round after it ran."""
         cfg, rcfg = self.ngp.cfg, self.rcfg
         win_rows = None if self.use_span else self._packed(occ_grid)
         N = rays_o.shape[0]
@@ -421,27 +471,35 @@ class RoundRenderer:
         samples = torch.zeros(N, dtype=torch.int64, device=dev)
         total = torch.zeros((), dtype=torch.int64, device=dev)
         rounds = 0
-        while rounds < MAX_ROUNDS:
+        while rounds < self.max_rounds:
             idx = torch.nonzero(alive).squeeze(1)       # reads n_alive
-            n = idx.numel()
-            if n == 0:
+            n_alive = idx.numel()
+            if n_alive == 0:
                 break
-            _, n_s, chain = self._bucket(n)
+            bucket = self._bucket(n_alive)
+            slots, n_s, chain = bucket
+            idx = idx[:slots]
+            n = idx.numel()
             ro, rd, te = rays_o[idx], rays_d[idx], t_end[idx]
             ts, dts, valid, t_next, n_eff = march_rays_test_round(
                 ro, rd, t_cur[idx], te, occ_grid, cascades=cfg.cascades,
                 scale=cfg.scale, exp_step_factor=cfg.exp_step_factor,
                 grid_size=cfg.grid_size, max_samples=rcfg.max_samples,
                 n_samples=n_s, chain_length=chain, win_rows=win_rows)
-            xyz = ro[:, None, :] + ts[..., None] * rd[:, None, :]
-            dirs = rd[:, None, :].expand(n, n_s, 3)
-            sigmas, rgbs = self.ngp(xyz.reshape(n * n_s, 3),
-                                    dirs.reshape(n * n_s, 3))
+            if self.const_field:
+                sigmas = torch.full((n, n_s), 10.0, device=dev)
+                rgbs = torch.full((n, n_s, 3), 0.5, device=dev)
+            else:
+                xyz = ro[:, None, :] + ts[..., None] * rd[:, None, :]
+                dirs = rd[:, None, :].expand(n, n_s, 3)
+                sigmas, rgbs = self.ngp(xyz.reshape(n * n_s, 3),
+                                        dirs.reshape(n * n_s, 3))
+                sigmas = sigmas.reshape(n, n_s)
+                rgbs = rgbs.reshape(n, n_s, 3)
             o2, d2, r2, a2 = composite_test_round(
-                sigmas.reshape(n, n_s), rgbs.reshape(n, n_s, 3), dts, ts,
-                valid, opacity[idx], depth[idx], rgb[idx],
-                torch.ones(n, dtype=torch.bool, device=dev),
-                rcfg.test_t_threshold)
+                sigmas, rgbs, dts, ts, valid, opacity[idx], depth[idx],
+                rgb[idx], torch.ones(n, dtype=torch.bool, device=dev),
+                self.thr)
             s2 = samples[idx] + n_s
             a2 = a2 & (t_next < te) & (s2 < rcfg.max_samples)
             t_cur[idx] = t_next
@@ -452,25 +510,20 @@ class RoundRenderer:
             samples[idx] = s2
             total += n_eff.sum()
             rounds += 1
+            if on_round is not None:
+                on_round(bucket, n_alive, valid, n_eff)
         return rgb, depth, opacity, total, rounds
 
     @torch.no_grad()
-    def render_image(self, occ_grid, rays_o, rays_d,
-                     bg_color: Optional[float] = None) -> Dict:
-        """rays (N, 3) f32 tensors on the model's device -> dict of rgb
-        (N, 3), depth, opacity (tensors) and total_samples, rounds,
-        alive_rays (ints)."""
+    def span_pass(self, occ_grid, rays_o, rays_d):
+        """The frame's occupied-span pre-pass, a chunk at a time: each
+        ray's span [t1, t2] and whether it has one (hits the box and
+        crosses an occupied supercell).  One cascade, uniform steps."""
         cfg = self.ngp.cfg
-        if bg_color is None:
-            bg_color = 1.0 if cfg.exp_step_factor == 0 else 0.0
-        N = rays_o.shape[0]
-        dev = rays_o.device
-        if not self.use_span:
-            return self._render_unspanned(occ_grid, rays_o, rays_d, bg_color)
         span_grid = self._packed(occ_grid)
         dt_min = SQRT3 / self.rcfg.max_samples
         t1_all, t2_all, alive_all = [], [], []
-        for i in range(0, N, self.chunk):
+        for i in range(0, rays_o.shape[0], self.chunk):
             ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
             hits = scene_hits(ro, rd, cfg.scale)
             t1s, t2s, span_steps = occupied_span(
@@ -479,8 +532,25 @@ class RoundRenderer:
             t1_all.append(t1s)
             t2_all.append(t2s)
             alive_all.append((hits[:, 0] >= 0) & (span_steps > 0))
-        t1_all, t2_all = torch.cat(t1_all), torch.cat(t2_all)
-        idx = torch.nonzero(torch.cat(alive_all)).squeeze(1)
+        return torch.cat(t1_all), torch.cat(t2_all), torch.cat(alive_all)
+
+    @torch.no_grad()
+    def render_image(self, occ_grid, rays_o, rays_d,
+                     bg_color: Optional[float] = None,
+                     on_round=None) -> Dict:
+        """rays (N, 3) f32 tensors on the model's device -> dict of rgb
+        (N, 3), depth, opacity (tensors) and total_samples, rounds,
+        alive_rays (ints).  `on_round` goes to every chunk's round loop."""
+        cfg = self.ngp.cfg
+        if bg_color is None:
+            bg_color = 1.0 if cfg.exp_step_factor == 0 else 0.0
+        N = rays_o.shape[0]
+        dev = rays_o.device
+        if not self.use_span:
+            return self._render_unspanned(occ_grid, rays_o, rays_d, bg_color,
+                                          on_round)
+        t1_all, t2_all, alive_all = self.span_pass(occ_grid, rays_o, rays_d)
+        idx = torch.nonzero(alive_all).squeeze(1)
 
         rgb = torch.zeros((N, 3), device=dev)
         depth = torch.zeros(N, device=dev)
@@ -489,7 +559,8 @@ class RoundRenderer:
         for i in range(0, idx.numel(), self.chunk):
             sel = idx[i:i + self.chunk]
             r, d, o, ns, nr = self._render_chunk(
-                occ_grid, rays_o[sel], rays_d[sel], t1_all[sel], t2_all[sel])
+                occ_grid, rays_o[sel], rays_d[sel], t1_all[sel], t2_all[sel],
+                on_round)
             rgb[sel], depth[sel], opacity[sel] = r, d, o
             total += int(ns)
             rounds += nr
@@ -498,7 +569,8 @@ class RoundRenderer:
                 "total_samples": total, "rounds": rounds,
                 "alive_rays": int(idx.numel())}
 
-    def _render_unspanned(self, occ_grid, rays_o, rays_d, bg_color):
+    def _render_unspanned(self, occ_grid, rays_o, rays_d, bg_color,
+                          on_round=None):
         """Chunks of consecutive rays from their box hits
         (rendering.py:939-968): each chunk's alive count, and so its
         buckets, counts the rays of that chunk that hit the box.  A short
@@ -511,12 +583,11 @@ class RoundRenderer:
         for i in range(0, N, self.chunk):
             ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
             n = ro.shape[0]
-            if n < self.chunk:
-                ro, rd = (torch.cat([a, a.new_ones((self.chunk - n, 3))])
-                          for a in (ro, rd))
+            ro, rd = _pad_chunk(ro, self.chunk), _pad_chunk(rd, self.chunk)
             hits = scene_hits(ro, rd, self.ngp.cfg.scale)
             r, d, o, ns, nr = self._render_chunk(occ_grid, ro, rd,
-                                                 hits[:, 0], hits[:, 1])
+                                                 hits[:, 0], hits[:, 1],
+                                                 on_round)
             parts.append((r[:n], d[:n], o[:n]))
             total += int(ns)
             rounds += nr
@@ -533,3 +604,162 @@ class RoundRenderer:
         rays_o, rays_d = get_rays(directions, pose)
         return self.render_image(occ_grid, rays_o.contiguous(), rays_d,
                                  bg_color)
+
+
+class TestRenderer:
+    """Renders each chunk of rays in one pass (`make_test_renderer`,
+    rendering.py:481-578): one march of the whole chain into a CSR pool of
+    chunk x `pool_mult` slots, one field pass over the pool (K1 + K7), and
+    the train compositor at `t_threshold` (None: the config's test
+    threshold).  No rounds and no span cull: every occupied sample up to
+    max_samples is paid, and a ray's early out is the compositor's mask.
+    Where rays graze the scene and never reach the threshold, that beats
+    the round renderer, which pays the march and its scheduling again each
+    round; on hard surfaces the rounds' early out wins.
+
+    The march starts each ray at its box entry (no noise): the 8-step
+    windowed march where `use_window` is set and the scene has one cascade
+    with uniform steps (the caller checks `segment_march_dmax_ok`), else
+    `march_rays_train` on the grid.  `chain_length` 0 is max_samples,
+    twice that under exponential steps.  A short last chunk is padded with
+    rays from (1, 1, 1) along (1, 1, 1); their outputs are dropped."""
+
+    __test__ = False            # a renderer, not a pytest class
+
+    def __init__(self, ngp, rcfg: RenderConfig, chunk: int = 16384,
+                 pool_mult: int = 64, use_window: bool = False,
+                 chain_length: int = 0, t_threshold: Optional[float] = None):
+        cfg = ngp.cfg
+        self.ngp = ngp
+        self.rcfg = rcfg
+        self.chunk = chunk
+        self.pool_mult = pool_mult
+        self.window = (use_window and cfg.cascades == 1
+                       and cfg.exp_step_factor == 0.0)
+        self.chain = chain_length or _default_chain(cfg, rcfg)
+        self.thr = rcfg.test_t_threshold if t_threshold is None \
+            else t_threshold
+        self._grid_cache: list = []
+
+    def _windows(self, occ_grid):
+        """The 8-step march's windows, once per occupancy grid."""
+        if not self.window:
+            return None
+        if not (self._grid_cache and self._grid_cache[0] is occ_grid):
+            self._grid_cache[:] = [occ_grid, occupancy_windows(occ_grid)]
+        return self._grid_cache[1]
+
+    @torch.no_grad()
+    def _render_chunk(self, occ_grid, rays_o, rays_d):
+        N = rays_o.shape[0]
+        m = march_train(self.ngp.cfg, self.rcfg, rays_o, rays_d,
+                        rays_o.new_zeros(N), self._windows(occ_grid),
+                        layout="csr", slots=self.pool_mult,
+                        chain_length=self.chain, occ_grid=occ_grid)
+        ridx = torch.clamp(m.ray_idx, 0, N - 1)
+        o, d = rays_o[ridx], rays_d[ridx]
+        sigmas, rgbs = self.ngp(_fma(m.ts[:, None], d, o), d)
+        out = composite_train(sigmas, rgbs, m.deltas, m.ts, m.ray_idx,
+                              m.valid, m.offsets, n_rays=N,
+                              T_threshold=self.thr)
+        return (out["rgb"], out["depth"], out["opacity"],
+                out["vr_samples"].sum())
+
+    @torch.no_grad()
+    def render_image(self, occ_grid, rays_o, rays_d,
+                     bg_color: Optional[float] = None) -> Dict:
+        """rays (N, 3) f32 tensors on the model's device -> dict of rgb
+        (N, 3), depth, opacity (tensors) and total_samples (int: the
+        samples the compositor kept)."""
+        if bg_color is None:
+            bg_color = 1.0 if self.ngp.cfg.exp_step_factor == 0 else 0.0
+        parts, total = [], 0
+        for i in range(0, rays_o.shape[0], self.chunk):
+            ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
+            n = ro.shape[0]
+            r, d, o, ns = self._render_chunk(
+                occ_grid, _pad_chunk(ro, self.chunk),
+                _pad_chunk(rd, self.chunk))
+            parts.append((r[:n], d[:n], o[:n]))
+            total = total + ns
+        rgb, depth, opacity = (torch.cat(p) for p in zip(*parts))
+        return {"rgb": rgb + bg_color * (1.0 - opacity[:, None]),
+                "depth": depth, "opacity": opacity,
+                "total_samples": int(total)}
+
+
+class HostRoundRenderer:
+    """The JAX package's host-loop alive-ray renderer (`make_round_renderer`,
+    rendering.py:987-1076; reference rendering.py:46-118).  Each round the
+    host reads the alive count N_a and takes n_samples = clamp(N // N_a,
+    min_samples, 64) rounded down to 1, 4, 16 or 64 (at least 4 under
+    exponential steps), a chain of max(4 n_samples, 64) steps and
+    max(256, next power of two of N_a) slots; the slots past the alive rays
+    repeat the first alive ray, whose samples there count in
+    total_samples and whose results there are dropped.  A round marches
+    the grid (`march_rays_test_round`, no windows), evaluates the field
+    (K1 + K7) and composites at the config's test threshold.  The loop
+    stops when no ray is alive, after `max_rounds` rounds, or once the
+    rounds' n_samples sum to max_samples.  No span pass: rays start at
+    their box entry."""
+
+    def __init__(self, ngp, rcfg: RenderConfig, max_rounds: int = 64):
+        self.ngp = ngp
+        self.rcfg = rcfg
+        self.max_rounds = max_rounds
+
+    @torch.no_grad()
+    def render_image(self, occ_grid, rays_o, rays_d,
+                     bg_color: Optional[float] = None) -> Dict:
+        """rays (N, 3) f32 tensors on the model's device -> dict of rgb
+        (N, 3), depth, opacity (tensors) and total_samples, rounds
+        (ints)."""
+        cfg, rcfg = self.ngp.cfg, self.rcfg
+        if bg_color is None:
+            bg_color = 1.0 if cfg.exp_step_factor == 0 else 0.0
+        min_samples = 1 if cfg.exp_step_factor == 0 else 4
+        N = rays_o.shape[0]
+        dev = rays_o.device
+        hits = scene_hits(rays_o, rays_d, cfg.scale)
+        t_cur, t_end = hits[:, 0].clone(), hits[:, 1]
+        opacity = torch.zeros(N, device=dev)
+        depth = torch.zeros(N, device=dev)
+        rgb = torch.zeros((N, 3), device=dev)
+        alive_idx = torch.nonzero(t_cur >= 0).squeeze(1)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        samples_done, rounds = 0, 0
+        while (alive_idx.numel() and rounds < self.max_rounds
+               and samples_done < rcfg.max_samples):
+            n_a = alive_idx.numel()
+            n_s = min(max(N // n_a, min_samples), 64)
+            n_s = max(min_samples, [v for v in (1, 4, 16, 64) if v <= n_s][-1])
+            B = max(256, 1 << (n_a - 1).bit_length())
+            idx = torch.cat([alive_idx, alive_idx[:1].expand(B - n_a)])
+            ro, rd = rays_o[idx], rays_d[idx]
+            ts, dts, valid, t_next, n_eff = march_rays_test_round(
+                ro, rd, t_cur[idx], t_end[idx], occ_grid,
+                cascades=cfg.cascades, scale=cfg.scale,
+                exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
+                max_samples=rcfg.max_samples, n_samples=n_s,
+                chain_length=max(4 * n_s, 64))
+            xyz = ro[:, None, :] + ts[..., None] * rd[:, None, :]
+            sigmas, rgbs = self.ngp(
+                xyz.reshape(B * n_s, 3),
+                rd[:, None, :].expand(B, n_s, 3).reshape(B * n_s, 3))
+            o2, d2, r2, a2 = composite_test_round(
+                sigmas.reshape(B, n_s), rgbs.reshape(B, n_s, 3), dts, ts,
+                valid, opacity[idx], depth[idx], rgb[idx],
+                torch.ones(B, dtype=torch.bool, device=dev),
+                rcfg.test_t_threshold)
+            a2 = a2 & (t_next < t_end[idx])
+            t_cur[alive_idx] = t_next[:n_a]
+            opacity[alive_idx] = o2[:n_a]
+            depth[alive_idx] = d2[:n_a]
+            rgb[alive_idx] = r2[:n_a]
+            alive_idx = alive_idx[a2[:n_a]]
+            total += n_eff.sum()
+            samples_done += n_s
+            rounds += 1
+        return {"rgb": rgb + bg_color * (1.0 - opacity[:, None]),
+                "depth": depth, "opacity": opacity,
+                "total_samples": int(total), "rounds": rounds}

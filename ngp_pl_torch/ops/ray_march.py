@@ -246,11 +246,13 @@ def march_rays_test_round(rays_o, rays_d, t_start, t_end, occ_grid, *,
     return ts_s, dts_s, valid, t_next, n_eff
 
 
-def occupied_span_prep(occ_grid, *, grid_size):
-    """Dilated super-grid for `occupied_span`: a supercell of 4^3 cells is
-    occupied if any of its cells is, then 3^3 max-pool dilation.  Returns
-    (G/4, G/4, G/4) bool; computed once per grid."""
-    f = SPAN_SUPER_FACTOR
+def occupied_span_prep(occ_grid, *, grid_size,
+                       super_factor: int = SPAN_SUPER_FACTOR):
+    """Dilated super-grid for `occupied_span`: a supercell of f^3 cells
+    (f = `super_factor`) is occupied if any of its cells is, then 3^3
+    max-pool dilation.  Returns (G/f, G/f, G/f) bool; computed once per
+    grid.  `occupied_span` reads the factor from its shape."""
+    f = super_factor
     SG = grid_size // f
     sup = (occ_grid[0].reshape(SG, f, SG, f, SG, f) > 0).any(dim=5)\
         .any(dim=3).any(dim=1)
@@ -580,7 +582,26 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min,
     same expression as the candidates' (`chain_t`, fused), and its delta
     the step size there: dt_min under uniform steps, clamp(t f, dt_min,
     dt_max) under exponential ones (ray_march.py:853-858)."""
-    N, K = occ.shape
+    K = occ.shape[1]
+    occ, rm_counts, offsets, total = _pool_counts(occ, max_samples,
+                                                  pool_size)
+    running = _pool_running(occ)
+    slot, valid, src = _pool_sources(running, total, pool_size)
+    src = _staging_budget(occ, running, slot, src, pool_size)
+    ts, deltas, ray_idx = _pool_positions(src, valid, t0, K, dt_min,
+                                          exp_step_factor, dt_max)
+    in_pool = torch.minimum(torch.clamp_min(total - offsets, 0), rm_counts)
+    return ts, deltas, ray_idx, valid, in_pool, offsets, total, rm_counts
+
+
+# The steps of `_compact_to_pool`, each a function so that
+# `benchmarking/micro_march.py` can time them apart.
+
+def _pool_counts(occ, max_samples, pool_size):
+    """Each ray's occupied candidates, cut at max_samples (the occupancy
+    past a ray's max_samples-th cleared), its pool offset, and the pool's
+    total: (occ, rm_counts, offsets, total)."""
+    K = occ.shape[1]
     if K <= max_samples:
         rm_counts = occ.sum(dim=1, dtype=torch.int32)
     else:
@@ -589,18 +610,30 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min,
         rm_counts = torch.clamp_max(incl[:, -1], max_samples)
     csum = torch.cumsum(rm_counts, dim=0, dtype=torch.int32)
     offsets = csum - rm_counts
-    total = torch.clamp_max(csum[-1], pool_size)
+    return occ, rm_counts, offsets, torch.clamp_max(csum[-1], pool_size)
 
+
+def _pool_running(occ):
+    """The running count of occupied candidates over the flat (N K)."""
+    return torch.cumsum(occ.reshape(-1).to(torch.int32), dim=0,
+                        dtype=torch.int32)
+
+
+def _pool_sources(running, total, pool_size):
+    """(slot, valid, src): the pool's slots, those below the total, and
+    each slot's flat candidate, by a sorted search of the running count."""
+    slot = torch.arange(pool_size, dtype=torch.int32, device=running.device)
+    return slot, slot < total, torch.searchsorted(running, slot + 1)
+
+
+def _staging_budget(occ, running, slot, src, pool_size):
+    """The slots past what the JAX package's staged groups hold take the
+    last staged group's repeated candidate (see `_compact_to_pool`)."""
+    N, K = occ.shape
     P = pool_size
-    running = torch.cumsum(occ.reshape(-1).to(torch.int32), dim=0,
-                           dtype=torch.int32)
-    slot = torch.arange(P, dtype=torch.int32, device=occ.device)
-    valid = slot < total
-    src = torch.searchsorted(running, slot + 1)
-
-    # the staging budget: g_last is the last staged group (the blocks-th
-    # non-empty one; the last group when fewer are non-empty, and then the
-    # staged groups hold every sample)
+    # g_last is the last staged group (the blocks-th non-empty one; the
+    # last group when fewer are non-empty, and then the staged groups hold
+    # every sample)
     grp = 32
     while K % grp:
         grp //= 2
@@ -614,19 +647,25 @@ def _compact_to_pool(occ, t0, max_samples, pool_size, dt_min,
     # flat (ray, kb[ksub]) of the group, ksub = 31 >> 3 = 3: lane 24, or
     # step 0 of its ray when GRP < 32; then bitpos & 7 = 7
     kb3 = g_last * grp + 24 if grp == 32 else (g_last // (K // grp)) * K
-    src = torch.where(slot < staged, src, kb3 + 7)
+    return torch.where(slot < staged, src, kb3 + 7)
+
+
+def _pool_positions(src, valid, t0, K, dt_min, exp_step_factor=0.0,
+                    dt_max=0.0):
+    """(ts, deltas, ray_idx) of each slot from its flat candidate src:
+    the chain's position at its step from its ray's t0, the step size
+    there, the ray (N on slots past the total)."""
+    P, N = src.shape[0], t0.shape[0]
     src = torch.where(valid, src, 0)
     ray = src // K
     k = (src % K).to(torch.float32)
     f = exp_step_factor
     ts = torch.where(valid, chain_t(t0[ray], k, f, dt_min, dt_max,
                                     fused=True), 0.0)
-    ray_idx = torch.where(valid, ray, N)
     deltas = (torch.clamp(ts * f, dt_min, dt_max) if f > 0.0 else
               torch.full((P,), dt_min, dtype=torch.float32,
-                         device=occ.device))
-    in_pool = torch.minimum(torch.clamp_min(total - offsets, 0), rm_counts)
-    return ts, deltas, ray_idx, valid, in_pool, offsets, total, rm_counts
+                         device=src.device))
+    return ts, deltas, torch.where(valid, ray, N)
 
 
 def march_rays_train_window(rays_o, rays_d, hits_t, noise, win_rows, *,
