@@ -139,6 +139,27 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            renderer's at chunk 65,536), five bucket ladders, four
            schedules and four one-pass configurations, the windowed
            march's stages and the compaction's steps (wall and device ms)
+  shard_frame  one frame's rays over ranks, on fps's trained system and
+           frame (800x800, T 1e-2), its slim checkpoint under build/:
+           (a) a process group of one NCCL rank renders the frame through
+           `RoundRenderer(group=...)`, bit-equal to the frame with no
+           group (rounds and samples too), with its collectives a frame;
+           (b) two gloo ranks spawned on this card each render their share
+           of every chunk: rounds and total samples equal to the one-rank
+           frame's, rgb, depth and opacity within SHARD_TOL (1e-6); each
+           rank launches K1 and K7; the fenced frame ms at one and two
+           ranks, read; (c) the same ranks run the eval entry's rank
+           function (`eval.run`) on the slim checkpoint, 2 views and
+           --fps_frames 5: PSNR/SSIM within VALIDATE_TOL of one rank's,
+           its "render:" line parsed as eval_fps's
+  profile_rounds, micro_field, ablate_geom  the JAX repository's
+           rounds-step, field-stack and geometry probes, in a spawned
+           process of their own, each counted from 0 at its start there:
+           the rounds layout's parts after 512 warm steps (PROBE_RUNS
+           calls a part, PROBE_BLOCK_RUNS blocks a layout), the MLP stack
+           and the field's fwd+bwd bisection at 262,144 points, L16F2 and
+           L8F4 after 512 steps (rays/s, PSNR, SSIM); every part's device
+           ms > 0 and the kernels of each launched
   eval_fps  ngp_pl_torch.eval --fps_frames 5 --max_images 1 from the
            resumed flagship's slim checkpoint: the "render:" line and
            EvalResult.fps_loop
@@ -3092,6 +3113,233 @@ def serving_paths(torch, card, system, dev="cuda"):
     return launches
 
 
+SHARD_FRAMES = 5               # fenced frames at each world size
+SHARD_TOL = 1e-6               # the split frame against the one-rank frame
+SHARD_VIEWS = 2                # the eval rank path's scored views
+SYNTHETIC_SIDE = 128           # the synthetic scene's side at downsample 1
+
+
+def shard_frame_path(torch, card, system, dev="cuda"):
+    """(a), (b) and (c) of the `shard_frame` phase (module note) on
+    `system` (fps_path's) and bench_fps's frame.  The phase's launches are
+    this process's, counted from 0 at its start, and both ranks', counted
+    from 0 at theirs.  Returns the phase's record."""
+    import dataclasses
+    import re
+
+    import torch.distributed as dist
+
+    from ngp_pl_torch import eval as ev
+    from ngp_pl_torch import parallel
+    from ngp_pl_torch.benchmarking import bench_fps, shard_frame
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    dirs, dirs_t, pose_t = bench_fps.frame_inputs(system, FPS_SIZE)
+    chunk = bench_fps.frame_chunk(FPS_SIZE ** 2)
+    rcfg = dataclasses.replace(system.rcfg,
+                               test_t_threshold=bench_fps.T_THRESHOLD)
+    occ = system.grid_state.occ_grid
+    keys = ("rgb", "depth", "opacity")
+
+    def frames(group=None):
+        render = bench_fps.renderer(system.ngp, rcfg, dirs, chunk,
+                                    group=group)
+        dt, out, _ = bench_fps.timed(
+            lambda: render.render_pose(occ, dirs_t, pose_t), dev,
+            SHARD_FRAMES)
+        return dt * 1e3, out, render.collectives / (SHARD_FRAMES + 1)
+
+    one_ms, one, _ = frames()
+    with _build_tmp() as tmp:
+        slim = os.path.join(tmp, "fps_slim.npz")
+        system.save_slim(slim)
+        for sub in ("a", "b"):
+            os.makedirs(os.path.join(tmp, sub))
+        dist.init_process_group(
+            "nccl" if dev == "cuda" else "gloo",
+            init_method="file://" + os.path.join(tmp, "a", "store"), rank=0,
+            world_size=1)
+        try:
+            group_ms, grouped, group_coll = frames(dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+        bit_equal = (all(bool(torch.equal(grouped[k], one[k])) for k in keys)
+                     and all(grouped[k] == one[k] for k in (
+                         "rounds", "total_samples", "alive_rays")))
+        cfg = system.cfg
+        argv = ["--weight_path", slim,
+                "--downsample", str(FPS_SIZE / SYNTHETIC_SIDE),
+                "--n_levels", str(cfg.n_levels),
+                "--n_features", str(cfg.n_features_per_level),
+                "--log2_hashmap_size", str(cfg.log2_hashmap_size),
+                "--max_images", str(SHARD_VIEWS), "--fps_frames",
+                str(FPS_FRAMES), "--device", str(dev)]
+        with contextlib.redirect_stdout(io.StringIO()):
+            one_eval = ev.main(argv + ["--num_devices", "1"])
+        here = {k: c.launches for k, c in counters.items()}
+        t1 = time.perf_counter()
+        parallel.launch(shard_frame.rank_run, 2,
+                        (os.path.join(tmp, "b"), slim, system.cfg, rcfg, dirs,
+                         pose_t.cpu().numpy(), SHARD_FRAMES, argv, dev),
+                        device="cuda:0" if dev == "cuda" else "cpu",
+                        backend="gloo", store_dir=os.path.join(tmp, "b"))
+        ranks = [torch.load(os.path.join(tmp, "b", f"shard_rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    pair_seconds = time.perf_counter() - t1
+    err = {k: max(float((r[k] - one[k].cpu()).abs().max()) for r in ranks)
+           for k in keys}
+    same = all(r[k] == one[k] for r in ranks
+               for k in ("rounds", "total_samples", "alive_rays"))
+    val_err = {k: abs(ranks[0]["eval"][k] - getattr(one_eval, k))
+               / abs(getattr(one_eval, k)) for k in ("psnr", "ssim")}
+    line = next((ln for ln in ranks[0]["eval"]["lines"]
+                 if re.match(RENDER_LINE, ln)), None)
+    rec = dict(
+        card=card, size=FPS_SIZE, chunk=chunk, frames=SHARD_FRAMES,
+        rounds=one["rounds"], total_samples=one["total_samples"],
+        alive_rays=one["alive_rays"],
+        one_nccl_rank_bit_equal=bit_equal,
+        collectives_per_frame_one_nccl_rank=group_coll,
+        collectives_per_frame_two_ranks=[r["collectives_per_frame"]
+                                         for r in ranks],
+        two_ranks_max_abs_err=err, tol=SHARD_TOL,
+        two_ranks_rounds_samples_equal=same,
+        frame_ms_no_group=one_ms, frame_ms_one_nccl_rank=group_ms,
+        frame_ms_two_gloo_ranks_one_card=[r["frame_ms"] for r in ranks],
+        launches_per_rank=[r["launches"] for r in ranks],
+        launches_per_rank_frame=[r["launches_frame"] for r in ranks],
+        eval_one_rank={k: getattr(one_eval, k) for k in (
+            "psnr", "ssim", "fps", "fps_loop", "fps_loop_samples_per_ray")},
+        eval_two_ranks={k: v for k, v in ranks[0]["eval"].items()
+                        if k != "lines"},
+        eval_lines_two_ranks=ranks[0]["eval"]["lines"],
+        eval_rel_err=val_err, validate_tol=VALIDATE_TOL,
+        pair_seconds=pair_seconds, seconds=time.perf_counter() - t0)
+    rec["launches"] = {k: here[k] + sum(int(r["launches"].get(k, 0))
+                                        for r in ranks) for k in here}
+    if not (bit_equal and same and max(err.values()) <= SHARD_TOL
+            and all(r["launches_frame"]["K1"] > 0
+                    and r["launches_frame"]["K7"] > 0 for r in ranks)
+            and max(val_err.values()) <= VALIDATE_TOL and line
+            and (int(re.match(RENDER_LINE, line).group(2)),
+                 int(re.match(RENDER_LINE, line).group(3)))
+            == (FPS_SIZE, FPS_SIZE)):
+        raise AssertionError(f"shard_frame: {rec}")
+    return rec
+
+
+ROUNDS_WARM = 512              # profile_rounds.py's PROF_WARM
+PROBE_RUNS = 3                 # timed calls of each probe part (JAX: 20)
+PROBE_WARMUP = 1               # untimed calls before them (JAX: 3)
+PROBE_BLOCK_RUNS = 1           # timed 16-step blocks a layout (JAX: 6)
+ABLATE_STEPS = 512             # the fits' depth in train_path
+
+
+def probe_paths(torch, card, dev="cuda"):
+    """profile_rounds (the flagship at 8192 rays, rounds pinned, warmed
+    ROUNDS_WARM steps), micro_field (262,144 points) and ablate_geom
+    (L16F2, then L8F4, ABLATE_STEPS steps), PROBE_RUNS calls a part after
+    PROBE_WARMUP and PROBE_BLOCK_RUNS blocks a layout (the scripts'
+    defaults are the JAX scripts' 20, 3 and 6): each counted from 0 at its
+    start.
+    Every part must read a device time; profile_rounds and micro_field
+    launch K1, K2+K5, K7 and K8, ablate_geom K3 and K4 in L16F2 and K1 and
+    K2+K5 in L8F4.  Returns the launches by phase."""
+    from ngp_pl_torch.benchmarking import (
+        ablate_geom,
+        micro_field,
+        profile_rounds,
+    )
+    from ngp_pl_torch.benchmarking.profile_step import profile_system
+
+    launches = {}
+    t0 = time.perf_counter()
+    rec, launches["profile_rounds"] = _counted(lambda: profile_rounds.run(
+        profile_system(dev, PROFILE_BATCH, "rounds"), ROUNDS_WARM,
+        runs=PROBE_RUNS, block_runs=PROBE_BLOCK_RUNS, warmup=PROBE_WARMUP,
+        log=io.StringIO()))
+    log({"phase": "profile_rounds", "card": card, **rec,
+         "launches": launches["profile_rounds"],
+         "seconds": time.perf_counter() - t0})
+    if not (all(p["device_ms"] > 0 and p["wall_ms"] > 0
+                for p in rec["parts"].values())
+            and all(launches["profile_rounds"][k] > 0
+                    for k in FLAGSHIP_KERNELS)):
+        raise AssertionError(f"profile_rounds: {rec}")
+
+    t0 = time.perf_counter()
+    rec, launches["micro_field"] = _counted(lambda: micro_field.run(
+        dev, runs=PROBE_RUNS, warmup=PROBE_WARMUP, log=io.StringIO()))
+    log({"phase": "micro_field", "card": card, "parts": rec,
+         "launches": launches["micro_field"],
+         "seconds": time.perf_counter() - t0})
+    if not (all(p["device_ms"] > 0 for p in rec.values())
+            and all(launches["micro_field"][k] > 0
+                    for k in FLAGSHIP_KERNELS)):
+        raise AssertionError(f"micro_field: {rec}")
+
+    t0 = time.perf_counter()
+    lines = []
+
+    def ablate():
+        out = []
+        for tag, n_levels, n_features in ablate_geom.GEOMETRIES:
+            system = ablate_geom.system_for(n_levels, n_features,
+                                            ABLATE_STEPS, dev, tag=tag)
+            out.append(ablate_geom.run(tag, system, ABLATE_STEPS,
+                                       log=None, emit=lines.append))
+            del system
+        return out
+
+    recs, launches["ablate_geom"] = _counted(ablate)
+    log({"phase": "ablate_geom", "card": card, "steps": ABLATE_STEPS,
+         "runs": recs, "lines": lines, "launches": launches["ablate_geom"],
+         "seconds": time.perf_counter() - t0})
+    if not (len(lines) == 2
+            and all(math.isfinite(r["psnr"]) and r["rays_per_s"] > 0
+                    for r in recs)
+            and all(launches["ablate_geom"][k] > 0
+                    for k in ("K1", "K2+K5", "K3", "K4"))):
+        raise AssertionError(f"ablate_geom: {recs}")
+    return launches
+
+
+def _probe_child(out: str, card: str) -> None:
+    """`probe_paths` in a spawned process; its launches go to `out`."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from ngp_pl_torch.device import resolve_device
+
+    resolve_device("cuda")
+    with open(out, "w") as f:
+        json.dump(probe_paths(torch, card), f)
+
+
+def probes_in_child(card) -> dict:
+    """`probe_paths` in a process of its own, spawned and joined here, its
+    counts from 0 in it: late in this long process the profiler on the
+    card has dropped every record of a window three times running (on an
+    H100), and the probes read each part's device time.
+    Returns the child's launches by phase."""
+    import multiprocessing
+
+    with _build_tmp() as tmp:
+        out = os.path.join(tmp, "probes.json")
+        child = multiprocessing.get_context("spawn").Process(
+            target=_probe_child, args=(out, card))
+        child.start()
+        child.join()
+        if child.exitcode != 0:
+            raise AssertionError(f"probes: the child exited with "
+                                 f"{child.exitcode}")
+        with open(out) as f:
+            return json.load(f)
+
+
 def eval_fps_path(torch, card, slim, dev="cuda"):
     """`ngp_pl_torch.eval.main` from the trained flagship's slim checkpoint
     at 800x800 (--downsample 6.25) with --fps_frames 5 --max_images 1: the
@@ -3341,8 +3589,15 @@ def main() -> int:
     # serving and march probes, on the system `fps` trained, each counted
     # from 0 at its start
     launches.update(serving_paths(torch, card, system))
+    # one frame's rays over ranks, on the same system and frame
+    shard = shard_frame_path(torch, card, system)
+    launches["shard_frame"] = shard["launches"]
+    log({"phase": "shard_frame", **shard})
     del system
     torch.cuda.empty_cache()
+    # the JAX repository's rounds-step, field-stack and geometry probes,
+    # in a fresh process
+    launches.update(probes_in_child(card))
     eval_fps = eval_fps_path(torch, card, slim)
     slim_dir.cleanup()
     launches["eval_fps"] = eval_fps["launches"]

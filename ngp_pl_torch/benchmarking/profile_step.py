@@ -58,13 +58,14 @@ def profile_system(device: str, batch: int, layout: str, **kw):
                         **kw)
 
 
-def ray_batch(system, seed: int = 0):
+def ray_batch(system, seed: int = 0, rng=None):
     """(rays_o, rays_d, noise) of the JAX script (:77-88): B images and B
-    pixels from `default_rng(seed)`, rays_d = pose[:3, :3] @ dir in
+    pixels from `default_rng(seed)` (or from `rng`, which goes on to draw
+    what the caller draws after them), rays_d = pose[:3, :3] @ dir in
     float32, then B uniforms of march noise."""
     ds = system.train_dataset
     B = system.tcfg.batch_size
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     img_idxs = rng.integers(0, len(ds.poses), B)
     pix_idxs = rng.integers(0, ds.directions.shape[0], B)
     poses = np.asarray(ds.poses)[img_idxs]

@@ -26,6 +26,22 @@ is read by the port's loaders, its test split scored and the train split
     python -m ngp_pl_torch.eval --weight_path \
         ckpts/synthetic/exp/epoch=30_slim.npz --mesh_path mesh.ply \
         --mesh_resolution 256
+
+With `--num_devices N` (0, the default, is every visible GPU, as the JAX
+eval.py's mesh over every device; with `--device cpu`, gloo ranks and 0
+is one) every view and every frame of the FPS loop is rendered by N ranks
+at once, one process per GPU (`RoundRenderer(group=...)`, the JAX
+renderer's `mesh=`): rank 0's parameters and grid are broadcast, each
+rank renders its share of each chunk's rays, and every rank gets the
+whole frame.  Rank 0 scores, prints and writes the mesh; a frame's fenced
+time ends when every rank has it (the frame's last all-gather).  One rank
+runs in this process with no process group.  `--multihost` joins a group
+started by an outside launcher (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
+`MASTER_ADDR`, `MASTER_PORT`).
+
+    python -m ngp_pl_torch.eval --weight_path SLIM --num_devices 4
+    python -m ngp_pl_torch.eval --device cpu --num_devices 2 \
+        --downsample 0.125 --n_levels 4 --log2_hashmap_size 12
 """
 from __future__ import annotations
 
@@ -37,6 +53,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import (
     MAX_SAMPLES,
     TrainConfig,
@@ -90,8 +107,12 @@ class EvalResult:
 @torch.no_grad()
 def evaluate(tcfg: TrainConfig, device="cuda",
              max_images: Optional[int] = None,
-             fps_frames: int = FPS_FRAMES) -> EvalResult:
+             fps_frames: int = FPS_FRAMES, group=None) -> EvalResult:
+    """Every rank of `group` (a process group, None for one process) runs
+    this with the same arguments and gets the same result."""
     dev = resolve_device(device)
+    if group is not None and dev.type == "cuda":       # this rank's card
+        dev = torch.device("cuda", torch.cuda.current_device())
     cfg, rcfg = tcfg.ngp_config(), tcfg.render_config()
     ds_cls = dataset_dict[tcfg.dataset_name]
     kw = dict(root_dir=tcfg.root_dir, downsample=tcfg.downsample, device=dev)
@@ -111,11 +132,14 @@ def evaluate(tcfg: TrainConfig, device="cuda",
             ngp, state, DENSITY_THRESHOLD,
             generator=torch.Generator().manual_seed(tcfg.seed))
         occ_grid = state.occ_grid
+    if group is not None:
+        parallel.broadcast_([w for _, _, w in ngp._slots()] + [occ_grid],
+                            group=group)
 
     # the windows of the JAX system's test renderer (system.py:78-89); one
     # cascade with uniform steps reads the grid, whose bits they equal
     renderer = RoundRenderer(ngp, rcfg, use_window=window_march_mc_ok(
-        test_ds.directions, cfg.exp_step_factor, cfg.cascades))
+        test_ds.directions, cfg.exp_step_factor, cfg.cascades), group=group)
     dirs = torch.from_numpy(test_ds.directions).to(dev)
     w, h = test_ds.img_wh
     n = len(test_ds.poses) if max_images is None else min(
@@ -185,7 +209,7 @@ def write_mesh(ngp: NGP, path: str, resolution: int, level: float) -> Dict:
                 march_s=t2 - t1)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     add_eval_args(parser)
     parser.add_argument("--max_images", type=int, default=None,
@@ -199,10 +223,55 @@ def main(argv=None):
     parser.add_argument("--mesh_resolution", type=int, default=256)
     parser.add_argument("--mesh_threshold", type=float, default=20.0,
                         help="sigma iso level (test.ipynb uses ~20)")
-    args = parser.parse_args(argv)
+    parser.add_argument("--num_devices", type=int,
+                        default=TrainConfig().num_devices,
+                        help="ranks that render each frame together, one "
+                        "process per GPU; 0 = every visible GPU (with "
+                        "--device cpu: gloo ranks, 0 = one)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group from RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR and MASTER_PORT (as "
+                        "torch.distributed.run sets them)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    """Returns this process's `EvalResult`; None in the process that
+    spawned the ranks of `--num_devices` N > 1."""
+    args = parse_args(argv)
+    if args.multihost:
+        parallel.init_from_env(args.device)
+        try:
+            res = run(args)
+            parallel.barrier()
+            return res
+        finally:
+            parallel.destroy()
+    world = parallel.resolve_world(args.num_devices, args.device)
+    if world == 1:
+        return run(args)
+    if args.device != "cpu":
+        from ngp_pl_torch import _build
+
+        _build.build()              # once, before the ranks load them
+    # by its module's name: the spawned ranks cannot import `__main__.run`
+    from ngp_pl_torch import eval as entry
+
+    parallel.launch(entry.run, world, (args,), device=args.device)
+    return None
+
+
+def run(args) -> EvalResult:
+    """Evaluate in this process: a rank of the default process group, or
+    alone; the lead (rank 0, or the one process) prints."""
+    import torch.distributed as dist
+
     tcfg = config_from_args(args)
+    group = dist.group.WORLD if parallel.active() else None
     res = evaluate(tcfg, device=args.device, max_images=args.max_images,
-                   fps_frames=args.fps_frames)
+                   fps_frames=args.fps_frames, group=group)
+    if parallel.rank() != 0:
+        return res
     h, w = res.images[0].shape[:2]
     print(f"test: psnr={res.psnr:.4f} ssim={res.ssim:.4f}")
     print(f"views: {res.fps:.2f} FPS at {w}x{h} "

@@ -34,6 +34,12 @@ bucket's slot count; here the host reads the alive count each round, as the
 CUDA reference does, and a round processes exactly the alive rays.  A ray's
 result depends only on the (n_samples, chain) sequence it sees, so it is the
 JAX package's.
+
+A frame splits over the ranks of a process group as the JAX renderer's
+`mesh=` splits it (`RoundRenderer(group=...)`): each rank marches and
+queries its contiguous share of every chunk's rays, and the ranks agree
+on each round's bucket through one all-gather of their alive counts; the
+frame equals the one-rank frame.
 """
 from __future__ import annotations
 
@@ -42,7 +48,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ngp_pl_torch import parallel
 from ngp_pl_torch.config import MAX_SAMPLES, NEAR_DISTANCE, SQRT3, RenderConfig
 from ngp_pl_torch.datasets.ray_utils import get_rays
 from ngp_pl_torch.ops.intersection import ray_aabb_intersect_single
@@ -413,13 +421,28 @@ class RoundRenderer:
     sigma 10 and rgb 0.5 in place of the field, so that a frame runs the
     march, the scheduling and the compositor without K1 and K7 (cost
     isolation for `benchmarking/fps_ablate.py`); `span_super_factor`,
-    cells per supercell edge of the span pre-pass."""
+    cells per supercell edge of the span pre-pass.
+
+    `group`, a `torch.distributed` process group, is the JAX function's
+    `mesh=`: each rank renders its contiguous share (`parallel.my_share`)
+    of the frame's span pass and of each chunk's rays, in ray order, and
+    the frame is the one-rank frame.  The span pass's (t1, t2, alive) are
+    gathered, so every rank forms the same alive list and chunks; each
+    round gathers the ranks' alive counts (one all-gather), picks the
+    bucket from their sum, and a rank takes those of its alive rays whose
+    position in the chunk's alive list is below the bucket's slots; every
+    rank leaves the loop in the same round, a rank with no ray in a round
+    marching and querying 0 rows.  rgb, depth and opacity are gathered to
+    every rank in ray order (one all-gather a frame), total samples (and
+    the unspanned path's alive rays) summed (one more); `collectives`
+    counts them.  `on_round` then sees the global alive count and this
+    rank's rays.  None is the one-rank renderer, with no collective."""
 
     def __init__(self, ngp, rcfg: RenderConfig, chunk: int = 131072,
                  use_window: bool = False, max_rounds: int = MAX_ROUNDS,
                  t_threshold: Optional[float] = None, buckets=None,
                  debug_const_field: bool = False,
-                 span_super_factor: int = SPAN_SUPER_FACTOR):
+                 span_super_factor: int = SPAN_SUPER_FACTOR, group=None):
         cfg = ngp.cfg
         self.ngp = ngp
         self.rcfg = rcfg
@@ -435,6 +458,8 @@ class RoundRenderer:
         self.use_span = cfg.cascades == 1 and cfg.exp_step_factor == 0.0
         self.use_window_mc = use_window and not self.use_span
         self._grid_cache: list = []
+        self.group = group
+        self.collectives = 0
 
     def _packed(self, occ_grid):
         """The span pass's dilated super-grid or the two-window chain's
@@ -453,6 +478,54 @@ class RoundRenderer:
     def _bucket(self, n_alive: int) -> Tuple[int, int, int]:
         branch = sum(s >= n_alive for s, _, _ in self.buckets[1:])
         return self.buckets[branch]
+
+    # -- the split frame: the identity without a group ------------------
+    def _share(self, n: int) -> Tuple[int, int]:
+        return (0, n) if self.group is None else parallel.my_share(
+            n, self.group)
+
+    def _sum_ints(self, values, dev) -> List[int]:
+        """The ranks' sums of host integers (one all-gather)."""
+        if self.group is None:
+            return list(values)
+        self.collectives += 1
+        return parallel.gather_ints(values, dev, self.group).sum(0).tolist()
+
+    def _alive_counts(self, n_alive: int, dev) -> Tuple[int, int]:
+        """(the chunk's alive rays over the ranks, those on the ranks
+        before this one), from one all-gather of the ranks' counts."""
+        if self.group is None:
+            return n_alive, 0
+        self.collectives += 1
+        counts = parallel.gather_ints([n_alive], dev, self.group)[:, 0]
+        before = int(counts[:dist.get_rank(self.group)].sum())
+        return int(counts.sum()), before
+
+    def _gather_frame(self, parts, chunks, rgb, depth, opacity):
+        """Every rank's outputs written at their rays, in one all-gather.
+        `parts`: this rank's (n, 5) rows of rgb, depth, opacity, chunk
+        after chunk; `chunks`: each chunk's (ray ids, items split), the
+        same on every rank: rank r holds the rows of
+        ids[start:min(stop, len(ids))] of its share [start, stop) of the
+        split items (a padded chunk's pads are not sent)."""
+        world = dist.get_world_size(self.group)
+        ids, counts = [], []
+        for r in range(world):
+            n = 0
+            for sel, n_split in chunks:
+                a, b = parallel.share_bounds(n_split, r, world)
+                ids.append(sel[a:min(b, sel.numel())])
+                n += ids[-1].numel()
+            counts.append(n)
+        dev = rgb.device
+        rows = parallel.gather_ragged(
+            torch.cat(parts) if parts else torch.zeros((0, 5), device=dev),
+            self.group, counts)
+        self.collectives += 1
+        order = torch.cat(ids) if ids else torch.zeros(
+            0, dtype=torch.int64, device=dev)
+        rgb[order], depth[order], opacity[order] = (
+            rows[:, :3], rows[:, 3], rows[:, 4])
 
     @torch.no_grad()
     def _render_chunk(self, occ_grid, rays_o, rays_d, t_start, t_end,
@@ -473,12 +546,12 @@ class RoundRenderer:
         rounds = 0
         while rounds < self.max_rounds:
             idx = torch.nonzero(alive).squeeze(1)       # reads n_alive
-            n_alive = idx.numel()
+            n_alive, before = self._alive_counts(idx.numel(), dev)
             if n_alive == 0:
                 break
             bucket = self._bucket(n_alive)
             slots, n_s, chain = bucket
-            idx = idx[:slots]
+            idx = idx[:max(slots - before, 0)]
             n = idx.numel()
             ro, rd, te = rays_o[idx], rays_d[idx], t_end[idx]
             ts, dts, valid, t_next, n_eff = march_rays_test_round(
@@ -534,6 +607,27 @@ class RoundRenderer:
             alive_all.append((hits[:, 0] >= 0) & (span_steps > 0))
         return torch.cat(t1_all), torch.cat(t2_all), torch.cat(alive_all)
 
+    def _span_frame(self, occ_grid, rays_o, rays_d):
+        """`span_pass` of the frame: with a group each rank's share, then
+        (t1, t2, alive) of every ray gathered to every rank."""
+        if self.group is None:
+            return self.span_pass(occ_grid, rays_o, rays_d)
+        N = rays_o.shape[0]
+        a, b = self._share(N)
+        if b > a:
+            t1, t2, alive = self.span_pass(occ_grid, rays_o[a:b],
+                                           rays_d[a:b])
+            mine = torch.stack([t1, t2, alive.to(t1.dtype)], 1)
+        else:
+            mine = rays_o.new_zeros((0, 3))
+        world = dist.get_world_size(self.group)
+        rows = parallel.gather_ragged(
+            mine, self.group,
+            [b - a for a, b in (parallel.share_bounds(N, r, world)
+                                for r in range(world))])
+        self.collectives += 1
+        return rows[:, 0], rows[:, 1], rows[:, 2] > 0
+
     @torch.no_grad()
     def render_image(self, occ_grid, rays_o, rays_d,
                      bg_color: Optional[float] = None,
@@ -549,21 +643,32 @@ class RoundRenderer:
         if not self.use_span:
             return self._render_unspanned(occ_grid, rays_o, rays_d, bg_color,
                                           on_round)
-        t1_all, t2_all, alive_all = self.span_pass(occ_grid, rays_o, rays_d)
+        t1_all, t2_all, alive_all = self._span_frame(occ_grid, rays_o,
+                                                     rays_d)
         idx = torch.nonzero(alive_all).squeeze(1)
 
         rgb = torch.zeros((N, 3), device=dev)
         depth = torch.zeros(N, device=dev)
         opacity = torch.zeros(N, device=dev)
         total, rounds = 0, 0
+        parts, chunks = [], []
         for i in range(0, idx.numel(), self.chunk):
             sel = idx[i:i + self.chunk]
+            a, b = self._share(sel.numel())
+            mine = sel[a:b]
             r, d, o, ns, nr = self._render_chunk(
-                occ_grid, rays_o[sel], rays_d[sel], t1_all[sel], t2_all[sel],
-                on_round)
-            rgb[sel], depth[sel], opacity[sel] = r, d, o
+                occ_grid, rays_o[mine], rays_d[mine], t1_all[mine],
+                t2_all[mine], on_round)
+            if self.group is None:
+                rgb[sel], depth[sel], opacity[sel] = r, d, o
+            else:
+                parts.append(torch.cat([r, d[:, None], o[:, None]], 1))
+                chunks.append((sel, sel.numel()))
             total += int(ns)
             rounds += nr
+        if self.group is not None:
+            self._gather_frame(parts, chunks, rgb, depth, opacity)
+            (total,) = self._sum_ints([total], dev)
         rgb = rgb + bg_color * (1.0 - opacity[:, None])
         return {"rgb": rgb, "depth": depth, "opacity": opacity,
                 "total_samples": total, "rounds": rounds,
@@ -577,22 +682,37 @@ class RoundRenderer:
         last chunk is padded, as the JAX package pads it, with rays from
         (1, 1, 1) along (1, 1, 1): inside a box of scale > 1 they are
         alive, move the chunk's buckets and add to its samples and rounds;
-        their outputs are dropped."""
-        parts, total, rounds, alive = [], 0, 0, 0
+        their outputs are dropped.  With a group each rank renders its
+        share of each padded chunk."""
+        parts, chunks, total, rounds, alive = [], [], 0, 0, 0
         N = rays_o.shape[0]
+        dev = rays_o.device
         for i in range(0, N, self.chunk):
             ro, rd = rays_o[i:i + self.chunk], rays_d[i:i + self.chunk]
             n = ro.shape[0]
             ro, rd = _pad_chunk(ro, self.chunk), _pad_chunk(rd, self.chunk)
+            a, b = self._share(self.chunk)
+            ro, rd = ro[a:b], rd[a:b]
             hits = scene_hits(ro, rd, self.ngp.cfg.scale)
             r, d, o, ns, nr = self._render_chunk(occ_grid, ro, rd,
                                                  hits[:, 0], hits[:, 1],
                                                  on_round)
-            parts.append((r[:n], d[:n], o[:n]))
+            m = max(min(b, n) - a, 0)       # this share's rays, not pads
+            parts.append((r[:m], d[:m], o[:m]))
+            chunks.append((torch.arange(i, i + n, device=dev), self.chunk))
             total += int(ns)
             rounds += nr
-            alive += int((hits[:n, 0] >= 0).sum())
-        rgb, depth, opacity = (torch.cat(p) for p in zip(*parts))
+            alive += int((hits[:m, 0] >= 0).sum())
+        if self.group is None:
+            rgb, depth, opacity = (torch.cat(p) for p in zip(*parts))
+        else:
+            rgb, depth, opacity = (torch.zeros((N, 3), device=dev),
+                                   torch.zeros(N, device=dev),
+                                   torch.zeros(N, device=dev))
+            self._gather_frame([torch.cat([r, d[:, None], o[:, None]], 1)
+                                for r, d, o in parts], chunks, rgb, depth,
+                               opacity)
+            total, alive = self._sum_ints([total, alive], dev)
         return {"rgb": rgb + bg_color * (1.0 - opacity[:, None]),
                 "depth": depth, "opacity": opacity, "total_samples": total,
                 "rounds": rounds, "alive_rays": alive}

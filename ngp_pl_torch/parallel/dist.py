@@ -16,6 +16,12 @@ program:
   gradients of the PyTorch tail) is reduced before its rounding
   (`mean_partial`).
 
+One frame's rays split the same way (`RoundRenderer(group=...)`, the JAX
+renderer's `mesh=`): each rank takes its contiguous share of a list of
+rays in order (`my_share`, shares one item apart at most) and the ranks'
+rows of differing counts are gathered padded to the largest
+(`gather_ragged`), as the JAX package pads a chunk.
+
 World size 1 with no process group is the one-process path: every helper
 is then the identity.  A process group of any size, world size 1 too,
 runs the collectives.  CUDA ranks use NCCL, CPU ranks gloo (which also
@@ -33,7 +39,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -158,14 +164,16 @@ def shard(t: torch.Tensor) -> torch.Tensor:
     return t[r * b // n:(r + 1) * b // n]
 
 
-def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
-    """Overwrite each tensor with rank `src`'s, in place."""
-    if not active():
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0,
+               group=None) -> None:
+    """Overwrite each tensor with rank `src`'s, in place (in `group`, the
+    default group where None)."""
+    if not _in_group(group):
         return
     with torch.no_grad():
         for t in tensors:
             if t is not None:
-                dist.broadcast(t, src)
+                dist.broadcast(t, src, group=group)
 
 
 def grad_mean(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -251,6 +259,66 @@ def reduce_scalars(sums: Dict[str, torch.Tensor],
     red = torch.cat([s[:, :a].sum(dim=0), s[:, a:b].mean(dim=0),
                      s[:, b:].amax(dim=0)])
     return {k: red[i].to(v.dtype) for i, (k, v) in enumerate(given.items())}
+
+
+def _in_group(group) -> bool:
+    return group is not None or active()
+
+
+def share_bounds(n: int, r: int, world: int) -> Tuple[int, int]:
+    """[start, stop) of rank `r`'s share of n items in order: contiguous
+    shares, the first n % world of them one item longer."""
+    base, extra = divmod(n, world)
+    start = r * base + min(r, extra)
+    return start, start + base + (r < extra)
+
+
+def my_share(n: int, group=None) -> Tuple[int, int]:
+    """[start, stop) of this rank's share of n items in ray order
+    (`share_bounds`) in `group` (the default group where None); (0, n)
+    without a process group."""
+    if not _in_group(group):
+        return 0, n
+    return share_bounds(n, dist.get_rank(group), dist.get_world_size(group))
+
+
+def gather_ragged(t: torch.Tensor, group=None,
+                  counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Every rank's rows of `t` concatenated in rank order, where the ranks
+    hold different numbers of rows: each share is padded to the largest and
+    trimmed after one all-gather, as the JAX package pads a chunk.  The
+    ranks' row counts are `counts` where every rank knows them, else
+    gathered first.  `t` as it is without a process group."""
+    if not _in_group(group):
+        return t
+    world = dist.get_world_size(group)
+    if counts is None:
+        counts = gather_ints([t.shape[0]], t.device, group)[:, 0].tolist()
+    counts = [int(c) for c in counts]
+    if counts[dist.get_rank(group)] != t.shape[0]:
+        raise ValueError(f"this rank holds {t.shape[0]} rows, its count "
+                         f"says {counts[dist.get_rank(group)]}")
+    m = max(counts)
+    if m == 0:
+        return t
+    src = t.contiguous()
+    if src.shape[0] < m:
+        src = torch.cat([src, src.new_zeros((m - src.shape[0],)
+                                            + tuple(src.shape[1:]))])
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+
+def gather_ints(values: Sequence[int], device, group=None) -> torch.Tensor:
+    """(world, k) int64 on the host: every rank's k integers, in one
+    all-gather on `device` (the card under NCCL)."""
+    v = torch.tensor(list(values), dtype=torch.int64, device=device)
+    if not _in_group(group):
+        return v.reshape(1, -1).cpu()
+    parts = [torch.empty_like(v) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, v, group=group)
+    return torch.stack(parts).cpu()
 
 
 def barrier() -> None:
