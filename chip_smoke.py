@@ -49,10 +49,10 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            launch; then train_reference again from the trained state on
            4 batches, each beside two witnesses against the CPU: the card's
            step with K7, and with every kernel, run as its plain version;
-           K1 alone passes within the limit against the plain versions'
-           step, or with its h1 and feats within K1_TOL of the plain ones
-           on every call and the plain step that takes K1's bf16 roundings
-           of h1 within the limit of it (`h1_rounded_as`); K7 passes on
+           K1 passes with its h1 and feats within K1_TOL of the plain
+           ones on every call, and K1 alone within the limit against the
+           plain versions' step or against the plain step that takes K1's
+           bf16 roundings of h1 (`h1_rounded_as`); K7 passes on
            every call of the step with K1 and K7 with its bf16 hidden
            values, read back through probe weights, within
            K7_ROUNDED_TOL's window of the plain tail that takes them and
@@ -155,11 +155,34 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
   profile_rounds, micro_field, ablate_geom  the JAX repository's
            rounds-step, field-stack and geometry probes, in a spawned
            process of their own, each counted from 0 at its start there:
-           the rounds layout's parts after 512 warm steps (PROBE_RUNS
-           calls a part, PROBE_BLOCK_RUNS blocks a layout), the MLP stack
-           and the field's fwd+bwd bisection at 262,144 points, L16F2 and
-           L8F4 after 512 steps (rays/s, PSNR, SSIM); every part's device
-           ms > 0 and the kernels of each launched
+           the rounds layout's parts after ROUNDS_WARM (256) warm steps
+           (PROBE_RUNS calls a part, PROBE_BLOCK_RUNS blocks a layout),
+           the MLP stack and the field's fwd+bwd bisection at 262,144
+           points, L16F2 and L8F4 after ABLATE_STEPS (256) steps (rays/s,
+           PSNR, SSIM); every part's device ms > 0 and the kernels of
+           each launched
+  check_pallas_encode, check_field_tail, check_bwd_parts,
+  micro_encode_fwd, micro_encode_geom  the JAX repository's encode and
+           field-tail checks in a second spawned child, each counted
+           from 0 at its start (`encode_check_paths`): the fused encode with its
+           kernels against the plain versions at L16F2 and L8F4 (the JAX
+           script's OK line; h1 within K1_TOL, the table gradient within
+           K2_TOL), K7 and K8 on the JAX script's inputs (its OK line; K7
+           within K7_TOL of both plain tails, K8 within K8_F32_TOL of the
+           f32 one), the encode backward's parts and the encode's stages
+           at N=262,144 and both geometries' fwd and fwd+bwd, each
+           script's encode kernels held on its inputs; every kernel a
+           script runs launched
+  diag_demand, diag_demand2, nan_hunt, nan_probe, dbg_pose  the JAX
+           repository's demand traces, NaN tools and pose-gradient check
+           in that child (`train_diag_paths`): the demand vector's
+           nine fields finite in every block; a few hunted blocks of
+           bench.py's scene, the last one's snapshot replayed from its
+           file in a new system (its loss beside the hunt's, logged); the
+           probe's every stage finite on both paths, the kernels' h1
+           within K1_TOL of the plain path's, their rgb within K7_TOL of
+           the plain tail's on the same h1; dR and dT
+           gradients finite and nonzero at S=64
   eval_fps  ngp_pl_torch.eval --fps_frames 5 --max_images 1 from the
            resumed flagship's slim checkpoint: the "render:" line and
            EvalResult.fps_loop
@@ -175,7 +198,9 @@ trained_render, profile, kernels) again in the strided layout
 K1 and K2+K5 on its train step's input) and in rounds with the distortion
 loss at 1e-2 (`_rounds`: four rounds of 8192, 4096, 2048 and 1024 slots
 each step, no kernels phase), trained from the seed and each
-step held to the CSR path's limits; each fit also logs every 16-step
+step held to the CSR path's limits, the trained step by the flagship's
+gate (K1 and K7 by their own errors; under rounds the CPU comparison also
+by the witness rule of ROUNDS_NOTE); each fit also logs every 16-step
 block: layout, S, chain, the share of the batch left out of the loss,
 samples per ray marched and composited, rays alive after the last round
 and the rounds' slots.
@@ -187,8 +212,9 @@ train_reference_mc (seeded), train_mc (512 steps; K1, K2+K5, K7 and K8
 must launch; each block with its layout, S, chain, rm per ray, occupied
 share per cascade, loss and rays/s from two CUDA events),
 train_reference_mc from the trained state on 4 batches
-(TRAINED_CPU_TOL_MC, TRAINED_KERNEL_TOL_MC, and the PR 9 witness rule
-against the CPU), trained_render_mc (an 800x800 frame of the trained
+(TRAINED_CPU_TOL_MC, TRAINED_KERNEL_TOL_MC, K1 and K7 by their own
+errors as on the flagship, and the witness rule against the CPU),
+trained_render_mc (an 800x800 frame of the trained
 field: FPS, samples/ray, rounds; the test views' PSNR/SSIM), a profiled
 block, then K1 and K2+K5 on a train step's input and K7 and K8 on the
 next step's (`kernels`, input train_step_mc).
@@ -197,7 +223,9 @@ the f32 table read by K3, its gradient by K4): slice_l16f2 (one view; K3
 and K7 must launch), ckpt_l16f2, train_reference_l16f2 (seeded; K3 and K4
 each alone held to the step's limits, the whole step to STEP_TOL_L16F2),
 train_l16f2 (512 steps; K3, K4, K7 and K8 must launch),
-train_reference_l16f2 from the trained state on 2 batches,
+train_reference_l16f2 from the trained state on 2 batches (K3 by its
+own error and its bf16 roundings of h1 as K1 on the flagship, K7 by its
+own error, K4 with K8 inside the gate's second part),
 trained_render_l16f2, a profiled block, K3 and K4 on a train step's
 input, and mesh_l16f2 (the trained field's mesh at 128^3 as `mesh` does
 it, K3 launched 16 times, K3 on a chunk of its lattice).
@@ -359,13 +387,58 @@ TRAINED_KERNEL_TOL_MC = (2e-3, 4e-2)
 TRAINED_BATCHES = (7, 8, 9, 10)   # seeds of the trained-state batches
 TRAINED_BATCHES_L16F2 = (7, 8)
 TRAINED_BATCHES_LAYOUTS = (7,)     # the strided and rounds paths
+TRAINED_BATCHES_MC = (7, 8, 9, 10)
+# The gate of each fitted scene's trained state, as `train_reference`'s
+# arguments (`trained_gate`).  Every scene's encode kernel (K1, or K3 at
+# L16F2) is held by its own error and its bf16 roundings of h1
+# (`encode_by_rounding`), and K7 by its own error: the card's fit is not
+# bit-reproducible (the table gradient's atomics), so a limit read off the
+# fitted state, such as the witness of K1's error, is redrawn with every
+# fit.  The witness is logged beside (`witness_reading`) and decides
+# nothing.  The rounds and scale-4 states also keep the CPU comparison's
+# witness rule (`cpu_floor_by_witness`, ROUNDS_NOTE), which reads the
+# other side of the step.  L16F2 keeps K3's and K4's records alone; with
+# the rounding gate they decide nothing themselves.
+_ROUNDED = dict(encode_by_rounding=True, witness_reading=True)
+TRAINED_GATES = {
+    "flagship": dict(cpu_tol=TRAINED_CPU_TOL, card_tol=TRAINED_KERNEL_TOL,
+                     seeds=TRAINED_BATCHES, **_ROUNDED),
+    "strided": dict(cpu_tol=TRAINED_CPU_TOL, card_tol=TRAINED_KERNEL_TOL,
+                    seeds=TRAINED_BATCHES_LAYOUTS, **_ROUNDED),
+    "rounds": dict(cpu_tol=TRAINED_CPU_TOL, card_tol=TRAINED_KERNEL_TOL,
+                   seeds=TRAINED_BATCHES_LAYOUTS, cpu_floor_by_witness=True,
+                   **_ROUNDED),
+    "l16f2": dict(cpu_tol=TRAINED_CPU_TOL, card_tol=TRAINED_KERNEL_TOL,
+                  seeds=TRAINED_BATCHES_L16F2, alone=("K3", "K4"),
+                  alone_tol=TRAINED_KERNEL_TOL, **_ROUNDED),
+    "mc": dict(cpu_tol=TRAINED_CPU_TOL_MC, card_tol=TRAINED_KERNEL_TOL_MC,
+               seeds=TRAINED_BATCHES_MC, cpu_floor_by_witness=True,
+               **_ROUNDED),
+    "disk": dict(cpu_tol=TRAINED_CPU_TOL, card_tol=TRAINED_KERNEL_TOL,
+                 seeds=(7,), encode_by_rounding=True),
+}
+# each fitted scene's `train_setup.train_config` arguments (scale 4 is
+# `bench_mc.bench_mc_system`'s, the disk scene `disk_path`'s)
+SCENE_CONFIGS = {"flagship": {},
+                 "strided": dict(train_layout="strided",
+                                 distortion_loss_w=0.0),
+                 "rounds": dict(train_layout="rounds",
+                                distortion_loss_w=1e-2),
+                 "l16f2": dict(n_levels=16, n_features=2)}
 TRAIN_STEPS = 512              # 32 blocks: 16 warmup refreshes, then phases
 K7_N = 1048576                 # K7's samples in the kernels phase
 K8_N = 262144                  # K8's
 POOL_N = 8192 * 48             # the train pool at x48, both kernels again
 
 
+_T0 = time.perf_counter()
+
+
 def log(obj) -> None:
+    """One JSON line; a phase's line also takes the seconds since this
+    process started (`t`)."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1057,26 +1130,11 @@ def tpu_staged_samples(torch, system, rays_o, rays_d, noise) -> int:
 def plain_on_card(*keys):
     """Within the block the named kernels' wrappers run their plain PyTorch
     versions on the card's tensors instead of launching (and counting): the
-    witnesses of `train_reference`."""
-    from ngp_pl_torch.ops import field_tail as ft
-    from ngp_pl_torch.ops import hash_encoding as he
+    witnesses of `train_reference` (`benchmarking.plain`)."""
+    from ngp_pl_torch.benchmarking.plain import plain_versions
 
-    swaps = {"K1": (he, "hash_encode_fwd_cuda", he.hash_encode_fwd_plain),
-             "K3": (he, "hash_encode_fwd_f2_cuda", he.hash_encode_fwd_plain),
-             "K7": (ft, "field_tail_cuda", ft.field_tail_plain),
-             "K2+K5": (he, "hash_encode_bwd_cuda", he.hash_encode_bwd_plain),
-             "K4": (he, "hash_encode_bwd_f2_cuda", he.hash_encode_bwd_plain),
-             "K8": (ft, "field_tail_bwd_cuda", ft.field_tail_bwd_plain)}
-    saved = [(mod, attr, getattr(mod, attr))
-             for mod, attr, _ in (swaps[k] for k in keys)]
-    try:
-        for k in keys:
-            mod, attr, plain = swaps[k]
-            setattr(mod, attr, plain)
+    with plain_versions(*keys):
         yield
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
 
 
 # The encode kernels miss their plain versions by up to 8.7e-7 of max |h1|
@@ -1296,15 +1354,21 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     involved.  Each kernel of the path is also run alone, the others as
     their plain versions, against the all-plain step on the card
     (`alone_vs_plain_on_card`), which tells the kernels' shares apart; the
-    kernels named in `alone` are held to `alone_tol` there.  `cpu_tol`,
-    `card_tol` and `alone_tol` are (loss, gradient) limits.
+    kernels named in `alone` are held to `alone_tol` there, unless
+    `encode_by_rounding` is set: then the encode kernel among them is held
+    by its rounding gate and the others inside `card_gate`, as every
+    other kernel, and their records alone decide nothing (`alone_held`).
+    `cpu_tol`, `card_tol` and `alone_tol` are (loss, gradient) limits.
 
     With `cpu_floor_by_witness`, a batch whose card step misses the CPU's
     past `cpu_tol` while the card's step with no hand kernel misses it past
     `cpu_tol` too (a loss at the rounding floor: the rounds layout's ~1e-10
     after a fit, see ROUNDS_NOTE) is held by its pool against the CPU and
     by `card_tol` against the plain versions on the card; the record says
-    so (`cpu_gate`).
+    so (`cpu_gate`).  It decides the comparison with the CPU alone, and
+    the options below the comparisons on the card alone, so that a state
+    takes both: the rounds layout's fitted state is held against the CPU
+    by this rule and on the card by `encode_by_rounding`.
 
     With `encode_floor_by_witness` (a fitted state) the encode kernel
     (K1 or K3) alone is held to the larger of `card_tol` and its own
@@ -1320,14 +1384,15 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     `card_tol` itself (`card_gate`).  No other kernel, and no step, is
     held to the witness.
 
-    With `encode_by_rounding` (the fitted flagship and disk scene, where
-    the encode kernel alone has read up to 2.4x its witness) the encode kernel
-    alone is held to `card_tol` against the plain versions' step, or else
-    against the plain versions' step whose h1 takes the encode kernel's
-    bf16 roundings (`h1_rounded_as`), on which every call of that step
-    also holds the kernel's h1 and feats within K1_TOL of the plain ones:
-    the kernel then moves the step by nothing but bf16 roundings of values
-    that it computed within its limit.  A step past `card_tol` is held as
+    With `encode_by_rounding` (every fitted scene, TRAINED_GATES, where
+    the encode kernel alone has read up to 2.4x its witness) the encode
+    kernel's h1 and feats are held within K1_TOL of the plain ones on every
+    call of the step with its bf16 roundings of h1 (`h1_rounded_as`), and
+    the encode kernel alone to `card_tol` against the plain versions'
+    step, or else against that step with its roundings: the kernel then
+    moves the step by nothing but bf16 roundings of values that it
+    computed within its limit, and a kernel past its limit is refused
+    whatever the step reads.  A step past `card_tol` is held as
     two parts as above (`card_gate`).  With K7 on the path, K7 is also
     held by its own error on every call of the step with the encode
     kernel and K7, the backward kernels plain (`k7_by_rounding`,
@@ -1408,7 +1473,7 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
             vs_alone[key] = {k: v for k, v in step_err(
                 torch, names, one, plain).items() if k in brief + (
                     "pool_identical",)}
-            if key in alone:
+            if key in alone and not encode_by_rounding:
                 failed |= not within(vs_alone[key], alone_tol)
             if key == encode and flips is not None:
                 witness_ok = within(vs_alone[key], encode_tol)
@@ -1419,10 +1484,10 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                 rounding = {k: v for k, v in step_err(
                     torch, names, one, attributed).items()
                     if k in brief + ("pool_identical",)}
-                rounding_ok = within(vs_alone[key], card_tol) or (
-                    rounded["h1_max_rel_err"] <= K1_TOL
-                    and rounded["feats_max_rel_err"] <= K1_TOL
-                    and within(rounding, card_tol))
+                rounding_ok = (rounded["h1_max_rel_err"] <= K1_TOL
+                               and rounded["feats_max_rel_err"] <= K1_TOL
+                               and (within(vs_alone[key], card_tol)
+                                    or within(rounding, card_tol)))
                 failed |= not rounding_ok
                 encode_ok = rounding_ok
                 rest = step_err(torch, names, card, one)
@@ -1505,6 +1570,7 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
                pool_mult=system._pool_mult,
                chain_length=system.step_chain(), cpu_tol=cpu_tol,
                card_tol=card_tol, alone=list(alone), alone_tol=alone_tol,
+               alone_held=bool(alone) and not encode_by_rounding,
                alone_vs_plain_on_card_max={
                    key: [max(b["alone_vs_plain_on_card"][key][m]
                              for b in batches)
@@ -1544,6 +1610,13 @@ def train_reference(torch, system, cpu_tol, card_tol, seeds=(7,),
     if failed and check:
         raise AssertionError(f"card vs CPU train step disagrees: {out}")
     return out
+
+
+def trained_gate(torch, system, scene, check=True, **kw):
+    """`train_reference` from the fitted state of `scene` (a key of
+    TRAINED_GATES) with that scene's gate; `kw` overrides its arguments."""
+    return train_reference(torch, system,
+                           **{**TRAINED_GATES[scene], **kw}, check=check)
 
 
 def trained_render(torch, system, downsample=6.25):
@@ -1698,20 +1771,17 @@ def ckpt_roundtrip(torch, res, tcfg):
             "hash_table": list(res.ngp.hash_table.shape)}
 
 
-def train_path(torch, tcfg, card, suffix, trained_batches,
-               seeded_tol=STEP_TOL, alone=(), at_step=True,
-               seeded_cpu_tol=None, encode_by_rounding=False,
-               slim_path=None):
-    """The train path of one geometry: the seeded step against the CPU
-    (limit `seeded_cpu_tol`, by default `seeded_tol`) and the plain
-    versions (limit `seeded_tol`), `NeRFSystem.fit` (the counts
-    from 0 just before, read just after), the trained step on
-    `trained_batches`, the trained field's 800x800 render and a profiled
-    block.  The kernels named in `alone` are held, each alone, to STEP_TOL
-    (seeded) and TRAINED_KERNEL_TOL (trained) against the plain versions
-    on the card; with `encode_by_rounding` the trained step's encode
-    kernel is held by its own error and its bf16 roundings of h1, its
-    witness `witness_h1_flips` logged beside (`train_reference`).  Then, if
+def train_path(torch, card, suffix, scene, seeded_tol=STEP_TOL, alone=(),
+               at_step=True, seeded_cpu_tol=None, slim_path=None):
+    """The train path of one fitted scene (a key of SCENE_CONFIGS): the
+    seeded step against the CPU (limit `seeded_cpu_tol`, by default
+    `seeded_tol`) and the plain versions (limit `seeded_tol`; the kernels
+    named in `alone` each alone to STEP_TOL), `NeRFSystem.fit` (the counts
+    from 0 just before, read just after), the trained step held by the
+    scene's gate (`trained_gate`: the encode kernel by its own error and
+    its bf16 roundings of h1, K7 by its own error, the witness
+    `witness_h1_flips` logged beside), the trained field's 800x800 render
+    and a profiled block.  Then, if
     `at_step`, the encode kernel and the
     table-gradient kernel on the input of one more train step
     (`table_grad_inputs.capture`: the CSR pool's positions and gradients,
@@ -1721,8 +1791,12 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     written there after the fit.  Returns the fit's record and the two
     kernels' records, by key."""
     from ngp_pl_torch.benchmarking.table_grad_inputs import capture
-    from ngp_pl_torch.benchmarking.train_setup import train_system
+    from ngp_pl_torch.benchmarking.train_setup import (
+        train_config,
+        train_system,
+    )
 
+    tcfg = train_config(**SCENE_CONFIGS[scene])
     system = train_system(tcfg)                  # seeded, first refresh
     system.on_train_start()
     system._refresh_grid(0)
@@ -1737,12 +1811,7 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
     if slim_path:
         system.save_slim(slim_path)
     log({"phase": "train_reference" + suffix, "state": "trained",
-         **train_reference(torch, system, TRAINED_CPU_TOL,
-                           TRAINED_KERNEL_TOL, seeds=trained_batches,
-                           alone=alone, alone_tol=TRAINED_KERNEL_TOL,
-                           cpu_floor_by_witness=system.layout == "rounds",
-                           encode_by_rounding=encode_by_rounding,
-                           witness_reading=encode_by_rounding)})
+         **trained_gate(torch, system, scene)})
     log({"phase": "trained_render" + suffix, "card": card,
          **trained_render(torch, system)})
     log({"phase": "profile", "of": "train_block" + suffix, "card": card,
@@ -1767,7 +1836,6 @@ def train_path(torch, tcfg, card, suffix, trained_batches,
 
 
 MC_STEPS = 512                 # the scale-4 fit (bench_mc: 4096)
-TRAINED_BATCHES_MC = (7, 8, 9, 10)
 
 
 def capture_tail(system):
@@ -1832,10 +1900,7 @@ def mc_path(torch, card):
          "cascades": system.cfg.cascades,
          "window_march": system.window_march, **train})
     log({"phase": "train_reference_mc", "state": "trained",
-         **train_reference(torch, system, TRAINED_CPU_TOL_MC,
-                           TRAINED_KERNEL_TOL_MC, seeds=TRAINED_BATCHES_MC,
-                           cpu_floor_by_witness=True,
-                           encode_floor_by_witness=True)})
+         **trained_gate(torch, system, "mc")})
     log({"phase": "trained_render_mc", "card": card,
          **trained_render(torch, system),
          "test_views": system.validate(save_images=False)})
@@ -3231,11 +3296,11 @@ def shard_frame_path(torch, card, system, dev="cuda"):
     return rec
 
 
-ROUNDS_WARM = 512              # profile_rounds.py's PROF_WARM
+ROUNDS_WARM = 256              # profile_rounds.py's PROF_WARM is 512
 PROBE_RUNS = 3                 # timed calls of each probe part (JAX: 20)
 PROBE_WARMUP = 1               # untimed calls before them (JAX: 3)
 PROBE_BLOCK_RUNS = 1           # timed 16-step blocks a layout (JAX: 6)
-ABLATE_STEPS = 512             # the fits' depth in train_path
+ABLATE_STEPS = 256             # the script's --steps is 1536
 
 
 def probe_paths(torch, card, dev="cuda"):
@@ -3307,34 +3372,303 @@ def probe_paths(torch, card, dev="cuda"):
     return launches
 
 
-def _probe_child(out: str, card: str) -> None:
-    """`probe_paths` in a spawned process; its launches go to `out`."""
+def encode_errors(torch, spec, x, table, w1, g) -> dict:
+    """The encode kernel (K1 or K3, by F) and the table-gradient kernel (K2
+    + K5 or K4) on (x, table, w1, g) against their plain versions on the
+    card: h1's and feats' error of max (K1_TOL) and the table gradient's
+    (K2_TOL), by kernel; raises past either.  Launched through the
+    uncounted entries, so that a phase's counts are its script's."""
+    from ngp_pl_torch.ops import hash_encoding as he
+
+    F = spec.n_features
+    fwd, bwd = ("K3", "K4") if F == 2 else ("K1", "K2+K5")
+    enc = he.encode_table(table, spec)
+    stand_in = type("StandIn", (), {"launches": 0})()
+    feats = torch.empty((x.shape[0], spec.out_dim), device=x.device)
+    h1 = he._launch_fwd(stand_in, {4: "hash_encode_fwd",
+                                   2: "hash_encode_fwd_f2"}[F], F, x, enc,
+                        w1, spec, feats)
+    feats_p = torch.empty_like(feats)
+    h1_p = he.hash_encode_fwd_plain(x, enc, w1, spec, feats_p)
+    d = he._launch_bwd(stand_in, {4: "hash_encode_bwd",
+                                  2: "hash_encode_bwd_f2"}[F], F, x,
+                       g.contiguous(), w1.contiguous(), spec)
+    d_p = he.hash_encode_bwd_plain(x, g, w1, spec)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa
+    out = {fwd: max(rel(h1, h1_p), rel(feats, feats_p)), bwd: rel(d, d_p)}
+    if not (out[fwd] <= K1_TOL and out[bwd] <= K2_TOL):
+        raise AssertionError(f"the encode kernels disagree: {out}")
+    return out
+
+
+def _checked_phase(card, launches, name, run, kernels, check):
+    """One phase of the scripts' groups: `run()` counted from 0 (its
+    launches into `launches[name]`), `check(record)` raising past a limit
+    and returning what it held, the phase's line, then every kernel named
+    in `kernels` launched, or with none named, no kernel at all."""
+    t0 = time.perf_counter()
+    rec, launches[name] = _counted(run)
+    held = check(rec)
+    log({"phase": name, "card": card, **rec, "held": held,
+         "launches": launches[name], "seconds": time.perf_counter() - t0})
+    fired = {k: v for k, v in launches[name].items() if v}
+    if not (all(k in fired for k in kernels) if kernels else not fired):
+        raise AssertionError(f"{name}: launches {launches[name]}")
+    return rec
+
+
+ENCODE_CHECK_RUNS = 3          # timed calls of each part (the scripts: 20)
+ENCODE_CHECK_WARMUP = 1        # untimed calls before them (the scripts: 3)
+
+
+def encode_check_paths(torch, card, dev="cuda"):
+    """The JAX repository's encode and field-tail checks, each counted
+    from 0 at its start, ENCODE_CHECK_RUNS calls a part: check_pallas_encode
+    at L16F2 and L8F4 (its OK line; h1 within K1_TOL, the table gradient
+    within K2_TOL of the plain versions), check_field_tail (its OK line;
+    K7 within K7_TOL of both plain tails, K8 within K8_F32_TOL of the f32
+    one), check_bwd_parts at F=4 and F=2, micro_encode_fwd and
+    micro_encode_geom at N=262,144, each script's encode kernels held on
+    its inputs (`encode_errors`).  Every kernel a script runs must launch.
+    Returns the launches by phase."""
+    from ngp_pl_torch.benchmarking import (
+        check_bwd_parts,
+        check_field_tail,
+        check_pallas_encode,
+        micro_encode_fwd,
+        micro_encode_geom,
+    )
+    from ngp_pl_torch.ops.hash_encoding import init_hash_table
+
+    quiet = dict(runs=ENCODE_CHECK_RUNS, warmup=ENCODE_CHECK_WARMUP,
+                 log=io.StringIO())
+    launches = {}
+
+    def phase(*args):
+        _checked_phase(card, launches, *args)
+
+    def pallas_ok(rec):
+        out = {}
+        for r in rec["geometries"]:
+            fwd, bwd = (("K3", "K4") if r["n_features"] == 2
+                        else ("K1", "K2+K5"))
+            out[fwd], out[bwd] = r["rel_err"]["fwd"], r["rel_err"]["d_table"]
+            if not (r["ok"] and out[fwd] <= K1_TOL and out[bwd] <= K2_TOL):
+                raise AssertionError(f"check_pallas_encode: {r}")
+        return out
+
+    phase("check_pallas_encode", lambda: {"geometries": [
+        check_pallas_encode.run(L, F, dev, **quiet)
+        for L, F in ((16, 2), (8, 4))]}, ("K1", "K3", "K2+K5", "K4"),
+        pallas_ok)
+
+    def tail_ok(rec):
+        worst = max(v["vs_f32"] for v in rec["k8"].values())
+        if not (rec["ok"] and rec["k7"]["vs_f32"] <= K7_TOL
+                and rec["k7"]["vs_float64"] <= K7_TOL
+                and worst <= K8_F32_TOL):
+            raise AssertionError(f"check_field_tail: {rec}")
+        return {"K7": rec["k7"], "K8_vs_f32": worst}
+
+    phase("check_field_tail", lambda: check_field_tail.run(
+        dev, limits={"K7_TOL": K7_TOL, "K8_F32_TOL": K8_F32_TOL,
+                     "K8_TOL": K8_TOL}, out=io.StringIO()), ("K7", "K8"),
+        tail_ok)
+
+    def bwd_parts_ok(rec):
+        out = {}
+        for F, r in rec.items():
+            spec = check_bwd_parts.geometry(int(F))
+            x, table, w1, g = check_bwd_parts.inputs(spec, r["setup"]["n"],
+                                                     dev)
+            out[F] = {"random": encode_errors(torch, spec, x, table, w1, g),
+                      "run_repeated": encode_errors(
+                          torch, spec, check_bwd_parts.run_repeated_x(
+                              r["setup"]["n"], dev), table, w1, g)}
+        return out
+
+    phase("check_bwd_parts", lambda: {
+        str(F): check_bwd_parts.run(F, dev, **quiet) for F in (4, 2)},
+        ("K1", "K3", "K2+K5", "K4"), bwd_parts_ok)
+
+    def micro_fwd_ok(rec):
+        spec = micro_encode_fwd.geometry()
+        return encode_errors(torch, spec, *micro_encode_fwd.inputs(
+            spec, 262144, dev))
+
+    phase("micro_encode_fwd", lambda: {"stages": micro_encode_fwd.run(
+        dev, **quiet)}, ("K1", "K2+K5"), micro_fwd_ok)
+
+    def geom_ok(rec):
+        out = {}
+        for tag, spec in micro_encode_geom.geometries():
+            gen = torch.Generator().manual_seed(1)
+            x = torch.rand((262144, 3), generator=gen).to(dev)
+            g = torch.randn((262144, 64), generator=gen).to(dev)
+            table = init_hash_table(spec, gen).to(dev)
+            w1 = (torch.randn((spec.out_dim, 64), generator=gen)
+                  * 0.05).to(dev)
+            out[tag] = encode_errors(torch, spec, x, table, w1, g)
+        return out
+
+    phase("micro_encode_geom", lambda: micro_encode_geom.run(dev, **quiet),
+          ("K1", "K3", "K2+K5", "K4"), geom_ok)
+    return launches
+
+
+DIAG_BLOCKS = 6                # diag_demand's blocks (the script: 100)
+DIAG_WARM = 96                 # diag_demand2's PROF_WARM (the script: 768)
+HUNT_BLOCKS = 4                # nan_hunt's blocks (the script: 1024)
+
+
+def train_diag_paths(torch, card, dev="cuda"):
+    """The JAX repository's demand traces, NaN tools and pose-gradient
+    check on bench.py's scene at full width, each counted from 0 at its
+    start: diag_demand (DIAG_BLOCKS blocks) and diag_demand2 (DIAG_WARM
+    steps), each block's nine demand fields finite; nan_hunt
+    (HUNT_BLOCKS blocks, a snapshot before each), its last snapshot
+    through nan_replay's file in a new system (the replayed block's loss
+    beside the hunt's, logged: the card's training is not
+    bit-reproducible), then nan_probe on the hunted state: every stage
+    finite on both paths, the kernels' h1 within K1_TOL of the plain
+    path's, their rgb within K7_TOL of the plain tail's on the same h1
+    (their rgb against the plain path's, logged, adds the bf16 flips of
+    K1's h1); dbg_pose's dR and dT gradients finite and
+    nonzero at S=64 (at the JAX script's S=8, logged, no ray is in the
+    loss).  K1, K2+K5, K7 and K8 must launch in every phase but dbg_pose,
+    K1 and K7 in nan_probe, and none in dbg_pose.  Returns the launches by
+    phase."""
+    from ngp_pl_torch.benchmarking import (
+        dbg_pose,
+        diag_demand,
+        diag_demand2,
+        nan_hunt,
+        nan_probe,
+        nan_replay,
+    )
+    from ngp_pl_torch.benchmarking.bench import bench_system
+    from ngp_pl_torch.models.ngp import NGP
+
+    launches = {}
+
+    def phase(*args):
+        return _checked_phase(card, launches, *args)
+
+    def demand_ok(rec):
+        if not (rec["blocks"] and diag_demand.all_finite(rec["blocks"])):
+            raise AssertionError(f"the demand vector: {rec}")
+        return {"blocks_finite": len(rec["blocks"])}
+
+    def demand(script, exp_name, size):
+        lines = []
+        system = bench_system(dev, 8192, exp_name=exp_name)
+        return {"blocks": script.run(system, size, emit=lines.append),
+                "lines": lines}
+
+    phase("diag_demand", lambda: demand(diag_demand, "diag", DIAG_BLOCKS),
+          FLAGSHIP_KERNELS, demand_ok)
+    phase("diag_demand2", lambda: demand(diag_demand2, "diag2", DIAG_WARM),
+          FLAGSHIP_KERNELS, demand_ok)
+
+    system = nan_hunt.build_system(30, dev)
+
+    def hunt():
+        lines = []
+        with _build_tmp() as tmp:
+            path = os.path.join(tmp, "snap.npz")
+            snap, block, losses, bad = nan_hunt.hunt(
+                system, HUNT_BLOCKS * 16, log=lines.append)
+            nan_hunt.save_snapshot(path, snap, steps=HUNT_BLOCKS * 16,
+                                   epochs=30)
+            replayed = nan_replay.replay(path, dev, log=lines.append)
+            mb = os.path.getsize(path) / 1e6
+        return {"blocks": HUNT_BLOCKS, "losses": losses, "non_finite": bad,
+                "replayed_block": block,
+                "replayed_losses": replayed["losses"],
+                "loss_hunt": losses[-1], "loss_replay": replayed["losses"][-1],
+                "snapshot_mb": mb, "lines": lines}
+
+    def hunt_ok(rec):
+        steps = rec["replayed_losses"]
+        if rec["non_finite"] or not (
+                len(steps) == 16 and all(math.isfinite(v) for v in steps)):
+            raise AssertionError(f"nan_hunt: {rec}")
+        return {"replayed_steps_finite": len(steps)}
+
+    phase("nan_hunt", hunt, FLAGSHIP_KERNELS, hunt_ok)
+
+    def probe_ok(rec):
+        worst = rec["kernels_vs_plain"]
+        if not (rec["first_bad_leaf"] is None
+                and not any(rec["first_bad_stage"].values())
+                and worst["h1_max_rel_err"] <= K1_TOL
+                and worst["k7_rgb_max_abs_err"] <= K7_TOL):
+            raise AssertionError(f"nan_probe: {rec}")
+        return worst
+
+    phase("nan_probe", lambda: nan_probe.probe(system, log=None),
+          ("K1", "K7"), probe_ok)
+    del system
+    torch.cuda.empty_cache()
+
+    def pose():
+        ngp = NGP(dbg_pose.config()[0], seed=0, device=dev, need_x_grad=True)
+        out = {}
+        for S in (8, 64):
+            r = dbg_pose.run(ngp, dev, n_samples=S)
+            out[f"S{S}"] = {k: r[k] for k in ("dR_grad_max", "dT_grad_max",
+                                              "loss", "rays_in_loss")}
+        return out
+
+    def pose_ok(rec):
+        got = [rec["S64"][k] for k in ("dR_grad_max", "dT_grad_max")]
+        if not all(math.isfinite(v) and v > 0 for v in got):
+            raise AssertionError(f"dbg_pose: {rec}")
+        return {"dR_dT_finite_nonzero": True}
+
+    phase("dbg_pose", pose, (), pose_ok)
+    return launches
+
+
+# the groups of phases that run each in a spawned process of its own
+CHILD_GROUPS = {"probes": ("probe_paths",),
+                "checks": ("encode_check_paths", "train_diag_paths")}
+
+
+def _probe_child(out: str, card: str, group: str) -> None:
+    """The phases of CHILD_GROUPS[group] in a spawned process; their
+    launches go to `out`."""
     import torch
 
     sys.path.insert(0, REPO)
     from ngp_pl_torch.device import resolve_device
 
     resolve_device("cuda")
+    launches = {}
+    for name in CHILD_GROUPS[group]:
+        launches.update(globals()[name](torch, card))
     with open(out, "w") as f:
-        json.dump(probe_paths(torch, card), f)
+        json.dump(launches, f)
 
 
-def probes_in_child(card) -> dict:
-    """`probe_paths` in a process of its own, spawned and joined here, its
-    counts from 0 in it: late in this long process the profiler on the
-    card has dropped every record of a window three times running (on an
-    H100), and the probes read each part's device time.
+def probes_in_child(card, group: str = "probes") -> dict:
+    """The phases of CHILD_GROUPS[group] in a process of their own,
+    spawned and joined here, their counts from 0 in it: late in a long
+    process the profiler on the card has dropped every record of a window
+    three times running (on an H100: in this process before the probes had
+    a child, and in the probes' child once the checks ran after the
+    probes), and these phases read device times.
     Returns the child's launches by phase."""
     import multiprocessing
 
     with _build_tmp() as tmp:
         out = os.path.join(tmp, "probes.json")
         child = multiprocessing.get_context("spawn").Process(
-            target=_probe_child, args=(out, card))
+            target=_probe_child, args=(out, card, group))
         child.start()
         child.join()
         if child.exitcode != 0:
-            raise AssertionError(f"probes: the child exited with "
+            raise AssertionError(f"{group}: the child exited with "
                                  f"{child.exitcode}")
         with open(out) as f:
             return json.load(f)
@@ -3538,8 +3872,7 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
-    train, at_step = train_path(torch, train_config(), card, "",
-                                TRAINED_BATCHES, encode_by_rounding=True)
+    train, at_step = train_path(torch, card, "", "flagship")
     for key, rec in at_step.items():
         checks[key]["at_train_step"] = rec
     launches["train"] = train["launches"]
@@ -3596,8 +3929,10 @@ def main() -> int:
     del system
     torch.cuda.empty_cache()
     # the JAX repository's rounds-step, field-stack and geometry probes,
-    # in a fresh process
-    launches.update(probes_in_child(card))
+    # its encode and field-tail checks, demand traces, NaN tools and
+    # pose-gradient check, in a fresh process
+    launches.update(probes_in_child(card, "probes"))
+    launches.update(probes_in_child(card, "checks"))
     eval_fps = eval_fps_path(torch, card, slim)
     slim_dir.cleanup()
     launches["eval_fps"] = eval_fps["launches"]
@@ -3610,12 +3945,11 @@ def main() -> int:
 
     # the flagship in the strided layout and in rounds with the distortion
     # loss, counted the same way
-    for layout, lam in (("strided", 0.0), ("rounds", 1e-2)):
+    for layout in ("strided", "rounds"):
         suffix = "_" + layout
         train, at_step = train_path(
-            torch, train_config(train_layout=layout, distortion_loss_w=lam),
-            card, suffix, TRAINED_BATCHES_LAYOUTS,
-            at_step=layout == "strided", seeded_cpu_tol=SEEDED_MASKED_CPU_TOL)
+            torch, card, suffix, layout, at_step=layout == "strided",
+            seeded_cpu_tol=SEEDED_MASKED_CPU_TOL)
         for key, rec in at_step.items():
             checks[key]["at_train_step" + suffix] = rec
         launches["train" + suffix] = train["launches"]
@@ -3637,8 +3971,7 @@ def main() -> int:
     with _build_tmp() as tmp:
         slim = os.path.join(tmp, "slim_l16f2.npz")
         train, at_step = train_path(
-            torch, train_config(n_levels=16, n_features=2), card, "_l16f2",
-            TRAINED_BATCHES_L16F2, seeded_tol=STEP_TOL_L16F2,
+            torch, card, "_l16f2", "l16f2", seeded_tol=STEP_TOL_L16F2,
             alone=("K3", "K4"), slim_path=slim)
         for key, rec in at_step.items():
             checks[key]["at_train_step"] = rec
@@ -3663,9 +3996,7 @@ def main() -> int:
         launches["train_disk"] = disk["launches"]
         log({"phase": "train_disk", **disk})
         log({"phase": "train_reference_disk", "state": "trained",
-             **train_reference(torch, system, TRAINED_CPU_TOL,
-                               TRAINED_KERNEL_TOL, seeds=(7,),
-                               encode_by_rounding=True)})
+             **trained_gate(torch, system, "disk")})
         tcfg, datasets = system.tcfg, (system.train_dataset,
                                        system.test_dataset)
         del system

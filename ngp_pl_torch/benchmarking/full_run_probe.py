@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ngp_pl_torch.benchmarking.full_run import make_system, run_config
+from ngp_pl_torch.benchmarking.plain import ALL, plain_versions
 
 
 def _view_psnr(system, ds, idx):
@@ -59,29 +60,6 @@ def _view_psnr(system, ds, idx):
         torch.from_numpy(ds.poses[idx]).to(system.dev))
     gt = ds.image(idx).reshape(h, w, 3)
     return float(psnr(out["rgb"].reshape(h, w, 3), gt))
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Within the block the encode, its table gradient, the field tail and
-    its backward run their plain versions, on any device."""
-    from ngp_pl_torch.ops import field_tail as ft
-    from ngp_pl_torch.ops import hash_encoding as he
-
-    swaps = [(he, "hash_encode_fwd_cuda", he.hash_encode_fwd_plain),
-             (he, "hash_encode_fwd_f2_cuda", he.hash_encode_fwd_plain),
-             (he, "hash_encode_bwd_cuda", he.hash_encode_bwd_plain),
-             (he, "hash_encode_bwd_f2_cuda", he.hash_encode_bwd_plain),
-             (ft, "field_tail_cuda", ft.field_tail_plain),
-             (ft, "field_tail_bwd_cuda", ft.field_tail_bwd_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    try:
-        for mod, name, plain in swaps:
-            setattr(mod, name, plain)
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 TABLE = "params['hash_table']"
@@ -196,7 +174,7 @@ def main(argv=None):
                     help="draws from a CPU generator, the same on any "
                          "device")
     args = ap.parse_args(argv)
-    with plain_versions() if args.plain else contextlib.nullcontext():
+    with plain_versions(*ALL) if args.plain else contextlib.nullcontext():
         _probe(args)
 
 
