@@ -183,6 +183,18 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            within K1_TOL of the plain path's, their rgb within K7_TOL of
            the plain tail's on the same h1; dR and dT
            gradients finite and nonzero at S=64
+  micro, micro_r2, micro_r2b, micro_r2c, micro_scatter, micro_r4,
+  train_quick  the JAX repository's primitive micros and its quick-train
+           script in two more spawned children (`other_micro_paths`,
+           `encode_micro_paths`), each counted
+           from 0 at its start: every label's wall ms and device ms
+           (MICRO_RUNS calls after MICRO_WARMUP; micro_r2b at N 65,536,
+           MICRO_CUTS); each `port: ` call
+           (K6, K3, K1, K2+K5) held against its primitive on the same
+           input within K6_TOL, K1_TOL or K2_TOL and launched;
+           micro_r4's fit (MICRO_R4_STEPS) and train_quick's
+           (TRAIN_QUICK_STEPS, 256x256, 24 views, 2 scored) launching K1,
+           K2+K5, K7 and K8 with a finite, falling loss
   eval_fps  ngp_pl_torch.eval --fps_frames 5 --max_images 1 from the
            resumed flagship's slim checkpoint: the "render:" line and
            EvalResult.fps_loop
@@ -190,8 +202,13 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            CSR, then strided, at 8192 rays after 192 steps: each stage's
            fenced wall ms and device ms, the stages that partition a step
            summed against the full step; K1, K2+K5, K7, K8 must launch
-  exr      ngp_pl_torch.misc.prepare_rtmv on a copy of the committed EXR
-           tree: its PNGs equal to those the JAX script wrote
+  exr      ngp_pl_torch.misc.prepare_rtmv on copies of the committed EXR
+           trees (ZIP, RLE, ZIPS; PIZ and PXR24): their PNGs equal to
+           those the JAX script wrote, seconds per frame; a 1600x1600
+           RGBA half PIZ frame written by the test writer and read back
+           exactly, its read seconds; where the machine has an EXR reader
+           of its own (cv2 with OpenEXR, the OpenEXR module), the PIZ and
+           PXR24 frames read by it equal to `read_exr`'s
 All of the train phases (train_reference, train, train_reference again,
 trained_render, profile, kernels) again in the strided layout
 (`_strided`: 8192 rays x S slots, the invalid ones at their ray's origin;
@@ -3531,9 +3548,12 @@ def train_diag_paths(torch, card, dev="cuda"):
     beside the hunt's, logged: the card's training is not
     bit-reproducible), then nan_probe on the hunted state: every stage
     finite on both paths, the kernels' h1 within K1_TOL of the plain
-    path's, their rgb within K7_TOL of the plain tail's on the same h1
-    (their rgb against the plain path's, logged, adds the bf16 flips of
-    K1's h1); dbg_pose's dR and dT gradients finite and
+    path's, K7 on the kernels' h1 held by its own bf16 roundings as on
+    the trained steps (`tail_rounded_as`: no hidden value outside
+    K7_ROUNDED_TOL's window, rgb and log sigma within K7_ROUNDED_TOL of
+    the plain tail that takes those roundings; its rgb against the f32
+    plain tail's, and the kernels' rgb against the plain path's, logged:
+    on the hunted state one bf16 flip moves rgb by up to ~7e-3); dbg_pose's dR and dT gradients finite and
     nonzero at S=64 (at the JAX script's S=8, logged, no ray is in the
     loss).  K1, K2+K5, K7 and K8 must launch in every phase but dbg_pose,
     K1 and K7 in nan_probe, and none in dbg_pose.  Returns the launches by
@@ -3542,12 +3562,14 @@ def train_diag_paths(torch, card, dev="cuda"):
         dbg_pose,
         diag_demand,
         diag_demand2,
+        field_tail_gates,
         nan_hunt,
         nan_probe,
         nan_replay,
     )
     from ngp_pl_torch.benchmarking.bench import bench_system
     from ngp_pl_torch.models.ngp import NGP
+    from ngp_pl_torch.ops import field_tail
 
     launches = {}
 
@@ -3597,17 +3619,23 @@ def train_diag_paths(torch, card, dev="cuda"):
 
     phase("nan_hunt", hunt, FLAGSHIP_KERNELS, hunt_ok)
 
+    def k7_rounded(h1, sh, *ws):
+        _, seen = field_tail_gates.tail_rounded_as(
+            field_tail.launch_k7, h1, sh, *ws, K7_ROUNDED_TOL)
+        return seen
+
     def probe_ok(rec):
-        worst = rec["kernels_vs_plain"]
+        worst, k7 = rec["kernels_vs_plain"], rec["tail_check"]
         if not (rec["first_bad_leaf"] is None
                 and not any(rec["first_bad_stage"].values())
                 and worst["h1_max_rel_err"] <= K1_TOL
-                and worst["k7_rgb_max_abs_err"] <= K7_TOL):
+                and k7 is not None and k7["out_of_window"] == 0
+                and k7["max_rel_err"] <= K7_ROUNDED_TOL):
             raise AssertionError(f"nan_probe: {rec}")
-        return worst
+        return {**worst, "k7_by_rounding": k7}
 
-    phase("nan_probe", lambda: nan_probe.probe(system, log=None),
-          ("K1", "K7"), probe_ok)
+    phase("nan_probe", lambda: nan_probe.probe(
+        system, log=None, tail_check=k7_rounded), ("K1", "K7"), probe_ok)
     del system
     torch.cuda.empty_cache()
 
@@ -3630,9 +3658,176 @@ def train_diag_paths(torch, card, dev="cuda"):
     return launches
 
 
+MICRO_RUNS = 10                # timed and profiled calls of each label
+MICRO_WARMUP = 1               # untimed calls before them (the scripts: 20, 3)
+# micro_r2b's N (the script: 262,144): its inputs hold 2.7 GB draws, 20 s
+# of the host's time at the script's N
+MICRO_CUTS = {"micro_r2b": {"N": 65536}}
+MICRO_R4_STEPS = 256           # micro_r4's fit (the script: 512)
+TRAIN_QUICK_STEPS = 512        # train_quick's fit (the script: 2000)
+MICRO_TOL = {"K6": K6_TOL, "K1": K1_TOL, "K3": K1_TOL, "K2+K5": K2_TOL}
+# the kernels of each micro's `port: ` labels
+MICRO_KERNELS = {"micro": ("K6", "K3", "K1"), "micro_r2": ("K6",),
+                 "micro_r2b": (), "micro_r2c": ("K6",),
+                 "micro_scatter": ("K6",)}
+
+
+def _fit_ok(losses) -> bool:
+    return (len(losses) >= 2 and all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0])
+
+
+def micro_paths(torch, card, phases, dev="cuda"):
+    """The phases named in `phases` (the JAX repository's six primitive
+    micros at their shapes, micro_r4, its quick-train script), in their
+    order, each counted from 0 at its start: every label's wall ms and
+    device ms finite (MICRO_RUNS calls after MICRO_WARMUP; the scripts'
+    defaults are the JAX scripts' 20 and 3; micro_r2b cut by MICRO_CUTS);
+    each `port: ` call against its primitive on the same input
+    (MICRO_TOL; the port's compositor prefix, no kernel, logged) and its
+    kernel launched, no kernel in micro_r2b; micro_r4's fit
+    (MICRO_R4_STEPS steps) and
+    train_quick's (TRAIN_QUICK_STEPS steps, then both test views scored
+    and dumped into a temporary directory) launching K1, K2+K5, K7 and K8
+    with a finite loss that falls.  Returns the launches by phase."""
+    import numpy as np
+
+    from ngp_pl_torch.benchmarking import (
+        micro,
+        micro_prims,
+        micro_r2,
+        micro_r2b,
+        micro_r2c,
+        micro_r4,
+        micro_scatter,
+        train_quick,
+    )
+
+    launches = {}
+    quiet = dict(runs=MICRO_RUNS, warmup=MICRO_WARMUP, log=None)
+
+    def timed_ok(labels, keys):
+        return list(labels) == list(keys) and all(
+            math.isfinite(r["wall_ms"]) and r["wall_ms"] > 0
+            and r["device_ms"] is not None and math.isfinite(r["device_ms"])
+            and r["device_ms"] > 0 for r in labels.values())
+
+    def held(name, state, refs):
+        out = {}
+        errs = micro_prims.port_errors(state["fns"], refs)
+        for label, (kernel, err) in errs.items():
+            out[label] = {"kernel": kernel, "rel_err": err,
+                          "tol": MICRO_TOL.get(kernel)}
+            if kernel is not None and not err <= MICRO_TOL[kernel]:
+                raise AssertionError(f"{name}: {label} {out[label]}")
+        state.clear()
+        return out
+
+    def script(mod):
+        name = mod.__name__.rsplit(".", 1)[1]
+        state = {}
+
+        def run():
+            cut = MICRO_CUTS.get(name, {})
+            inp = mod.inputs(dev, **cut)
+            fns = mod.functions(inp)
+            state.update(inp=inp, fns=fns)
+            derived = mod.derived(inp) if hasattr(mod, "derived") else None
+            return {"shapes": {**mod.SHAPES, **cut},
+                    "labels": micro_prims.time_labels(
+                        fns, dev, derived=derived, **quiet)}
+
+        def check(rec):
+            if not timed_ok(rec["labels"], mod.KEYS):
+                raise AssertionError(f"{name}: {rec}")
+            return held(name, state, mod.references(state["inp"],
+                                                    state["fns"]))
+
+        _checked_phase(card, launches, name, run, MICRO_KERNELS[name],
+                       check)
+
+    counters = _counters()
+    state = {}
+
+    def r4():
+        t0 = time.perf_counter()
+        system, fit = micro_r4.fit_system(dev, MICRO_R4_STEPS)
+        fit["launches"] = {k: c.launches for k, c in counters.items()}
+        fit["seconds"] = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        c = micro_r4.occupied_counts(
+            system, *micro_r4.count_rays(system, micro_r4.SHAPES["batch"],
+                                         rng)).cpu().numpy()
+        inp = micro_r4.inputs(system, rng, micro_r4.SHAPES["N"])
+        del system
+        state.update(inp=inp, fns=micro_r4.functions(inp))
+        return {"fit": fit, "counts": micro_r4.count_record(c),
+                "count_lines": micro_r4.count_lines(c),
+                "labels": micro_r4.time_parts(inp, dev, **quiet)}
+
+    def r4_ok(rec):
+        fit = rec["fit"]
+        if not (_fit_ok(fit["losses"])
+                and all(fit["launches"][k] > 0 for k in FLAGSHIP_KERNELS)
+                and timed_ok(rec["labels"], micro_r4.KEYS)
+                and rec["labels"][micro_r4.PORT_LABELS[0]][
+                    "kernel_device_ms"] > 0):
+            raise AssertionError(f"micro_r4: {rec}")
+        return held("micro_r4", state, micro_r4.references(state["inp"],
+                                                           state["fns"]))
+
+    def quick():
+        lines = []
+        with _build_tmp() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            cwd = os.getcwd()
+            os.chdir(tmp)
+            try:
+                rec = train_quick.run(dev, TRAIN_QUICK_STEPS,
+                                      emit=lines.append)
+            finally:
+                os.chdir(cwd)
+        return {**rec, "lines": lines}
+
+    def quick_ok(rec):
+        # the scores and seconds are logged, not held
+        if not (_fit_ok(rec["logged_losses"])
+                and all(rec["launches"][k] > 0 for k in FLAGSHIP_KERNELS)):
+            raise AssertionError(f"train_quick: {rec}")
+        return {"loss_falls": True}
+
+    run_phase = {
+        **{m.__name__.rsplit(".", 1)[1]: lambda m=m: script(m)
+           for m in (micro, micro_r2, micro_r2b, micro_r2c, micro_scatter)},
+        "micro_r4": lambda: _checked_phase(card, launches, "micro_r4", r4,
+                                           FLAGSHIP_KERNELS, r4_ok),
+        "train_quick": lambda: _checked_phase(
+            card, launches, "train_quick", quick, FLAGSHIP_KERNELS,
+            quick_ok)}
+    for name in phases:
+        run_phase[name]()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# Two children: in one process after `micro`, the profiler on the card
+# held no record of a later label's calls three profiles running (twice:
+# in micro_r2b's phase, and in micro_r2's), while `micro` and `micro_r2`
+# alone, and the other five phases together, read every label.
+def encode_micro_paths(torch, card):
+    return micro_paths(torch, card, ("micro", "micro_r2"))
+
+
+def other_micro_paths(torch, card):
+    return micro_paths(torch, card, ("micro_r2b", "micro_r2c",
+                                     "micro_scatter", "micro_r4",
+                                     "train_quick"))
+
+
 # the groups of phases that run each in a spawned process of its own
 CHILD_GROUPS = {"probes": ("probe_paths",),
-                "checks": ("encode_check_paths", "train_diag_paths")}
+                "checks": ("encode_check_paths", "train_diag_paths"),
+                "micros": ("other_micro_paths",),
+                "micros_encode": ("encode_micro_paths",)}
 
 
 def _probe_child(out: str, card: str, group: str) -> None:
@@ -3751,14 +3946,15 @@ def profile_step_path(torch, card, layout, dev="cuda"):
     return out
 
 
-def exr_path(card):
-    """`ngp_pl_torch.misc.prepare_rtmv` on a copy of the committed EXR tree
-    (tests/fixtures/rtmv_exr: two scenes, ZIP, RLE and ZIPS frames, a data
-    window off the origin, both line orders): every PNG it writes equal to
-    the committed one the JAX script wrote for the same frames."""
+EXR_TREES = {"rtmv_exr": 5, "rtmv_exr_piz": 3}     # tree: its frames
+EXR_BIG = 1600                 # RTMV's frame side: the timed PIZ frame
+
+
+def _rtmv_tree(tree: str, tmp: str) -> dict:
+    """`prepare_rtmv` on a copy of tests/fixtures/<tree>: its frames, each
+    PNG equal to the committed one the JAX script wrote, the seconds per
+    frame."""
     import glob
-    import importlib.util
-    import io
     import shutil
 
     import numpy as np
@@ -3766,27 +3962,130 @@ def exr_path(card):
     from ngp_pl_torch.datasets.color_utils import read_png
     from ngp_pl_torch.misc import prepare_rtmv
 
+    root = os.path.join(tmp, tree)
+    shutil.copytree(os.path.join(FIXTURES, tree), root)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        prepare_rtmv.main(root)
+    seconds = time.perf_counter() - t0
+    pngs = {}
+    for got in sorted(glob.glob(os.path.join(root, "*", "images", "*.png"))):
+        scene = os.path.basename(os.path.dirname(os.path.dirname(got)))
+        want = os.path.join(root, scene, "expected", os.path.basename(got))
+        a, b = read_png(got), read_png(want)
+        pngs[f"{scene}/{os.path.basename(got)}"] = bool(
+            a.shape == b.shape and np.array_equal(a, b))
+    n_exr = len(glob.glob(os.path.join(root, "*", "*.exr")))
+    return dict(frames=n_exr, pngs=pngs,
+                seconds_per_frame=seconds / max(n_exr, 1))
+
+
+def _other_exr_reader():
+    """(name, read) of an OpenEXR reader on this machine that is not the
+    port's, read giving (H, W, C) float32 in R, G, B(, A) order; or (None,
+    why there is none).  A cross-check of `read_exr`, never its
+    fallback."""
+    why = []
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    try:
+        import cv2
+        import numpy as np
+
+        def read_cv2(path):
+            img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+            if img is None:
+                raise ValueError("cv2.imread returned None")
+            img = img.astype(np.float32)
+            return img[..., [2, 1, 0, 3][:img.shape[-1]]]
+
+        if cv2.haveImageReader(os.path.join(FIXTURES, "rtmv_exr_piz",
+                                            "scene_p", "00000.exr")):
+            return "cv2 " + cv2.__version__, read_cv2
+        why.append(f"cv2 {cv2.__version__} has no OpenEXR reader")
+    except Exception as e:                      # noqa: BLE001
+        why.append(f"cv2: {type(e).__name__}: {e}")
+    try:
+        import numpy as np
+        import OpenEXR
+
+        def read_openexr(path):
+            ch = OpenEXR.File(str(path), separate_channels=True).channels()
+            names = [c for c in "RGBA" if c in ch]
+            return np.stack([np.asarray(ch[c].pixels, np.float32)
+                             for c in names], -1)
+
+        return "OpenEXR " + getattr(OpenEXR, "__version__", "?"), \
+            read_openexr
+    except Exception as e:                      # noqa: BLE001
+        why.append(f"OpenEXR: {type(e).__name__}: {e}")
+    return None, "; ".join(why)
+
+
+def exr_path(card):
+    """`prepare_rtmv` on copies of the committed EXR trees (EXR_TREES:
+    ZIP, RLE and ZIPS frames; PIZ half, PIZ float with a data window off
+    the origin and DECREASING_Y, PXR24 float): every PNG it writes equal
+    to the committed one the JAX script wrote for the same frames, the
+    seconds per frame; then an EXR_BIG x EXR_BIG RGBA half PIZ frame
+    written by the test writer and read back bit-exactly, with the
+    seconds of `read_exr`; and where the machine has an OpenEXR reader of
+    its own, the PIZ and PXR24 frames read by it equal to `read_exr`'s
+    (else null and why)."""
+    import glob
+    import importlib.util
+
+    import numpy as np
+
+    from ngp_pl_torch.datasets.exr import read_exr
+    from tests.exr_writer import write_exr
+
+    rec = dict(card=card, imageio_installed=importlib.util.find_spec(
+        "imageio") is not None)
     with _build_tmp() as tmp:
-        root = os.path.join(tmp, "rtmv")
-        shutil.copytree(os.path.join(FIXTURES, "rtmv_exr"), root)
+        rec["trees"] = {tree: _rtmv_tree(tree, tmp) for tree in EXR_TREES}
+        y, x = np.mgrid[0:EXR_BIG, 0:EXR_BIG] / EXR_BIG
+        rng = np.random.default_rng(0)
+        ch = {n: (np.sin(7 * x * (k + 1)) * np.cos(5 * y) + 1.0
+                  + 0.02 * rng.random(x.shape)).astype(np.float16)
+              for k, n in enumerate("RGB")}
+        ch["A"] = np.ones(x.shape, np.float16)
+        path = os.path.join(tmp, "big_piz.exr")
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            prepare_rtmv.main(root)
-        seconds = time.perf_counter() - t0
-        pngs = {}
-        for got in sorted(glob.glob(os.path.join(root, "*", "images",
-                                                 "*.png"))):
-            scene = os.path.basename(os.path.dirname(os.path.dirname(got)))
-            want = os.path.join(root, scene, "expected",
-                                os.path.basename(got))
-            a, b = read_png(got), read_png(want)
-            pngs[f"{scene}/{os.path.basename(got)}"] = bool(
-                a.shape == b.shape and np.array_equal(a, b))
-        n_exr = len(glob.glob(os.path.join(root, "*", "*.exr")))
-    rec = dict(card=card, frames=n_exr, pngs=pngs, seconds=seconds,
-               imageio_installed=importlib.util.find_spec("imageio")
-               is not None)
-    if not (n_exr == len(pngs) >= 5 and all(pngs.values())):
+        packed = write_exr(path, ch, "PIZ")
+        t1 = time.perf_counter()
+        got = read_exr(path)
+        t2 = time.perf_counter()
+        rec["piz_1600"] = dict(
+            side=EXR_BIG, blocks=len(packed), blocks_compressed=sum(packed),
+            mb=os.path.getsize(path) / 1e6, write_seconds=t1 - t0,
+            read_seconds=t2 - t1, exact=bool(np.array_equal(
+                got, np.stack([ch[n] for n in "RGBA"], -1).astype(
+                    np.float32))))
+    name, read = _other_exr_reader()
+    rec["other_reader"] = name
+    if name is None:
+        rec["other_reader_equal"] = None
+        rec["other_reader_why_none"] = read
+    else:
+        files = sorted(glob.glob(os.path.join(FIXTURES, "rtmv_exr_piz", "*",
+                                              "*.exr")))
+        try:
+            rec["other_reader_equal"] = {
+                os.path.basename(f): bool(np.array_equal(read(f),
+                                                         read_exr(f)))
+                for f in files}
+        except Exception as e:                  # noqa: BLE001
+            # a reader that cannot read the files cross-checks nothing
+            rec["other_reader_equal"] = None
+            rec["other_reader_why_none"] = f"{type(e).__name__}: {e}"
+    trees_ok = all(t["frames"] == len(t["pngs"]) == EXR_TREES[tree]
+                   and all(t["pngs"].values())
+                   for tree, t in rec["trees"].items())
+    other_ok = (rec["other_reader_equal"] is None
+                or all(rec["other_reader_equal"].values()))
+    if not (trees_ok and other_ok and rec["piz_1600"]["exact"]
+            and rec["piz_1600"]["blocks_compressed"]
+            == rec["piz_1600"]["blocks"]):
         raise AssertionError(f"exr: {rec}")
     return rec
 
@@ -3930,9 +4229,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the JAX repository's rounds-step, field-stack and geometry probes,
     # its encode and field-tail checks, demand traces, NaN tools and
-    # pose-gradient check, in a fresh process
+    # pose-gradient check, and its primitive micros and quick-train
+    # script, each group in a fresh process
     launches.update(probes_in_child(card, "probes"))
     launches.update(probes_in_child(card, "checks"))
+    # the JAX repository's primitive micros and quick-train script
+    launches.update(probes_in_child(card, "micros"))
+    launches.update(probes_in_child(card, "micros_encode"))
     eval_fps = eval_fps_path(torch, card, slim)
     slim_dir.cleanup()
     launches["eval_fps"] = eval_fps["launches"]

@@ -30,9 +30,14 @@ non-finite parameter leaf (else the first non-finite gradient leaf of
 the kernels' path), and `kernels_vs_plain`: the kernels' path's h1
 against the plain path's (error of max |h1|; chip_smoke.py's K1_TOL),
 its rgb against the plain tail's on the same h1 and directions (absolute,
-K7 alone on the same inputs; chip_smoke.py's K7_TOL, with the fused tail
-only), and its rgb against the plain path's (absolute, read: each bf16
-flip of an h1 that K1 computed within its limit moves rgb ~1e-3).
+K7 alone on the same inputs, with the fused tail only; read: on a trained
+state one hidden value that K7's sums round to the other bf16 neighbour
+than the plain tail's moves rgb by up to ~7e-3 on an H100), and its rgb
+against the plain path's (absolute, read: each bf16 flip of an h1 that
+K1 computed within its limit moves rgb ~1e-3).  With the fused tail,
+`tail_check(h1, sh, w2, wr1, wr2, wr3)`, where given, is called on the
+kernels' path's inputs of the tail and its result kept as `tail_check`
+(chip_smoke.py holds K7 there by its own bf16 roundings).
 """
 from __future__ import annotations
 
@@ -141,7 +146,7 @@ def _path(system, m, rays_o, rays_d, target, noise, bg, log) -> dict:
             "sh": ngp._sh(d)}
 
 
-def probe(system, batch=None, log=print) -> dict:
+def probe(system, batch=None, log=print, tail_check=None) -> dict:
     """The stages of the system's next step on both paths; the record
     (see the module's docstring)."""
     from ngp_pl_torch.benchmarking.plain import ALL, plain_versions
@@ -189,6 +194,8 @@ def probe(system, batch=None, log=print) -> dict:
         ws = [w.detach() for w in (ngp.sigma_mlp[1], *ngp.rgb_mlp)]
         _, rgb = field_tail_plain(k["h1"], k["sh"], *ws)
         compare["k7_rgb_max_abs_err"] = float((k["rgb"] - rgb).abs().max())
+    checked = (tail_check(k["h1"], k["sh"], *ws)
+               if ngp.use_fused and tail_check else None)
     return {"params": params, "march": march,
             "paths": {t: {"stats": r["stats"],
                           "first_bad_stage": r["first_bad_stage"],
@@ -197,4 +204,4 @@ def probe(system, batch=None, log=print) -> dict:
             "first_bad_stage": {t: r["first_bad_stage"]
                                 for t, r in paths.items()},
             "first_bad_leaf": bad_leaf or k["first_bad_grad"],
-            "kernels_vs_plain": compare}
+            "kernels_vs_plain": compare, "tail_check": checked}

@@ -1,5 +1,6 @@
 """The port's host library (C++, loaded with ctypes): ray-batch sampling,
-u8 image ingest, box downsampling and the PNG row unfilter.
+u8 image ingest, box downsampling, the PNG row unfilter and the OpenEXR
+PIZ decoder's Huffman and wavelet stages.
 
 Counterpart of ngp_pl_tpu/native/__init__.py, with its own copy of the
 source (`ray_sampler.cpp`), since the port imports nothing of the JAX
@@ -14,8 +15,9 @@ Setting `NGP_PL_TORCH_NO_NATIVE` asks for the numpy versions instead, as
 `NGP_PL_TPU_NO_NATIVE` does in the JAX package: then `get_lib()` returns
 None and the callers of sampling and u8 ingest (`datasets/base.py`,
 `datasets/color_utils.py`) take their numpy branch.  Nothing else selects
-that branch.  The PNG unfilter has no numpy branch (two of its filters are
-sequential along a row) and builds the library whatever the variable says.
+that branch.  The PNG unfilter and the PIZ stages have no numpy branch
+(each step depends on the one before) and build the library whatever the
+variable says.
 """
 from __future__ import annotations
 
@@ -82,6 +84,11 @@ def _load(so: Path) -> ctypes.CDLL:
     lib.ngp_downsample_box.argtypes = [pf, i64, i64, i64, i64, pf]
     lib.ngp_png_unfilter.argtypes = [pu8, i64, i64, i64, pu8]
     lib.ngp_png_unfilter.restype = i64
+    lib.ngp_piz_huf_decode.argtypes = [ctypes.c_char_p, i64,
+                                       ctypes.c_void_p, i64]
+    lib.ngp_piz_huf_decode.restype = i64
+    lib.ngp_piz_wav2_decode.argtypes = (
+        [ctypes.c_void_p] + [ctypes.c_int32] * 4 + [ctypes.c_uint16])
     lib.ngp_native_version.restype = ctypes.c_int
     return lib
 
@@ -206,3 +213,32 @@ def png_unfilter(raw: np.ndarray, h: int, row_bytes: int,
         raise ValueError(f"PNG row {bad} has filter type "
                          f"{raw[bad * (row_bytes + 1)]}, not 0-4")
     return out
+
+
+PIZ_ERRORS = {-1: "ends early", -2: "has a bad code table",
+              -3: "holds a code of no symbol",
+              -4: "decodes to more values than the block holds",
+              -5: "decodes to fewer values than the block holds",
+              -6: "starts with a run"}
+
+
+def piz_huf_decode(data: bytes, n_out: int) -> np.ndarray:
+    """The n_out u16 values of a PIZ block's Huffman-coded data (OpenEXR's
+    hufUncompress); ValueError naming what is wrong with a corrupt one."""
+    lib = _built()
+    out = np.empty(n_out, np.uint16)
+    err = lib.ngp_piz_huf_decode(data, len(data), out.ctypes.data, n_out)
+    if err:
+        raise ValueError(f"the Huffman data {PIZ_ERRORS[err]}")
+    return out
+
+
+def piz_wav2_decode(buf: np.ndarray, start: int, nx: int, ox: int, ny: int,
+                    oy: int, mx: int) -> None:
+    """OpenEXR's wav2Decode in place on the u16 values buf[start + x * ox +
+    y * oy] for x < nx, y < ny (14-bit transform when mx < 2^14)."""
+    lib = _built()
+    if (buf.dtype != np.uint16 or not buf.flags.c_contiguous
+            or start + (nx - 1) * ox + (ny - 1) * oy >= buf.size):
+        raise ValueError("the wavelet's plane lies outside the buffer")
+    lib.ngp_piz_wav2_decode(buf.ctypes.data + 2 * start, nx, ox, ny, oy, mx)

@@ -10,6 +10,9 @@
 // train.py:141-152, datasets/base.py:24-35); here one call draws a batch.
 // `ngp_png_unfilter` is the port's own: PNG's Average and Paeth filters
 // depend on the byte just decoded, so they run here rather than in numpy.
+// So are the OpenEXR PIZ decoder's two bit-serial stages,
+// `ngp_piz_huf_decode` (OpenEXR's ImfHuf.cpp) and `ngp_piz_wav2_decode`
+// (ImfWav.cpp); the rest of PIZ is numpy in datasets/exr.py.
 //
 // Exposed through a plain C ABI and loaded with ctypes; all buffers are
 // caller-allocated numpy arrays.
@@ -244,6 +247,180 @@ int64_t ngp_png_unfilter(const uint8_t* raw, int64_t h, int64_t row_bytes,
     }
   }
   return -1;
+}
+
+// OpenEXR PIZ, stage 1: the Huffman code of ImfHuf.cpp's hufUncompress.
+// `in` (n_in bytes) is a 20-byte header (u32 LE: im, iM, table length,
+// nBits, 0), the code lengths of symbols im..iM packed as 6-bit fields MSB
+// first (59-62: runs of 2-5 zero lengths; 63 + 8 bits: runs of 6-261),
+// then nBits of data MSB first.  Codes are canonical: of the lengths 58
+// down to 1, each length's codes follow the next length's, in symbol order
+// within a length.  Symbol iM is the run code: 8 bits follow, the count of
+// further copies of the symbol before it.  Writes n_out u16 values; returns
+// 0, or a negative code: -1 the input ends early, -2 a bad table, -3 a
+// code no symbol has, -4 more symbols than n_out, -5 fewer, -6 a run with
+// nothing before it.
+int64_t ngp_piz_huf_decode(const uint8_t* in, int64_t n_in, uint16_t* out,
+                           int64_t n_out) {
+  constexpr int64_t kEncSize = (1 << 16) + 1;
+  constexpr int kShortZeroRun = 59, kLongZeroRun = 63;
+  constexpr int kShortestLongRun = 2 + kLongZeroRun - kShortZeroRun;
+  constexpr int kMaxLen = 58;
+  if (n_in == 0) return n_out == 0 ? 0 : -5;
+  if (n_in < 20) return -1;
+  auto u32 = [&](int at) {
+    return (uint32_t)in[at] | (uint32_t)in[at + 1] << 8 |
+           (uint32_t)in[at + 2] << 16 | (uint32_t)in[at + 3] << 24;
+  };
+  const int64_t im = u32(0), iM = u32(4), n_bits = u32(12);
+  if (im >= kEncSize || iM >= kEncSize || im > iM) return -2;
+  // the packed table (hufUnpackEncTable)
+  std::vector<uint8_t> len(kEncSize, 0);
+  const uint8_t* p = in + 20;
+  const uint8_t* end = in + n_in;
+  uint64_t c = 0;
+  int lc = 0;
+  auto bits = [&](int n, int64_t& v) {
+    while (lc < n) {
+      if (p >= end) return false;
+      c = (c << 8) | *p++;
+      lc += 8;
+    }
+    lc -= n;
+    v = (int64_t)((c >> lc) & ((1ull << n) - 1));
+    return true;
+  };
+  for (int64_t i = im; i <= iM; i++) {
+    int64_t l;
+    if (!bits(6, l)) return -1;
+    int64_t zerun = 0;
+    if (l == kLongZeroRun) {
+      int64_t z;
+      if (!bits(8, z)) return -1;
+      zerun = z + kShortestLongRun;
+    } else if (l >= kShortZeroRun) {
+      zerun = l - kShortZeroRun + 2;
+    } else {
+      len[i] = (uint8_t)l;
+      continue;
+    }
+    if (i + zerun > iM + 1) return -2;
+    i += zerun - 1;
+  }
+  // canonical codes (hufCanonicalCodeTable): first code and symbols by length
+  int64_t count[kMaxLen + 1] = {0}, first[kMaxLen + 1] = {0};
+  for (int64_t i = 0; i < kEncSize; i++) count[len[i]]++;
+  int64_t code = 0;
+  for (int l = kMaxLen; l > 0; --l) {
+    int64_t next = (code + count[l]) >> 1;
+    first[l] = code;
+    code = next;
+  }
+  int64_t start[kMaxLen + 2] = {0};
+  for (int l = 1; l <= kMaxLen; l++) start[l + 1] = start[l] + count[l];
+  std::vector<int32_t> sym(start[kMaxLen + 1]);
+  int64_t fill[kMaxLen + 1];
+  for (int l = 1; l <= kMaxLen; l++) fill[l] = start[l];
+  for (int64_t i = 0; i < kEncSize; i++)
+    if (len[i]) sym[fill[len[i]]++] = (int32_t)i;
+  // the data: from the byte after the table's last
+  const uint8_t* data = p;
+  if (n_bits > 8 * (end - data)) return -1;
+  int64_t pos = 0, o = 0;
+  auto bit = [&]() { int64_t b = (data[pos >> 3] >> (7 - (pos & 7))) & 1; pos++; return b; };
+  while (pos < n_bits) {
+    int64_t v = 0, s = -1;
+    for (int l = 1; l <= kMaxLen && pos < n_bits; l++) {
+      v = (v << 1) | bit();
+      if (count[l] && v >= first[l] && v - first[l] < count[l]) {
+        s = sym[start[l] + v - first[l]];
+        break;
+      }
+    }
+    if (s < 0) return -3;
+    if (s == iM) {
+      if (pos + 8 > n_bits) return -1;
+      int64_t cs = 0;
+      for (int k = 0; k < 8; k++) cs = (cs << 1) | bit();
+      if (o == 0) return -6;
+      if (o + cs > n_out) return -4;
+      const uint16_t last = out[o - 1];
+      for (int64_t k = 0; k < cs; k++) out[o++] = last;
+    } else {
+      if (o >= n_out) return -4;
+      out[o++] = (uint16_t)s;
+    }
+  }
+  return o == n_out ? 0 : -5;
+}
+
+// OpenEXR PIZ, stage 2: ImfWav.cpp's wav2Decode, the inverse 2-D Haar
+// wavelet in place on n = nx * ny u16 values at `in`, x stride ox and y
+// stride oy (in values); the 14-bit transform when mx < 1 << 14, else the
+// 16-bit modular one.
+void ngp_piz_wav2_decode(uint16_t* in, int32_t nx, int32_t ox, int32_t ny,
+                         int32_t oy, uint16_t mx) {
+  const bool w14 = mx < (1 << 14);
+  auto dec14 = [](uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+    int16_t ls = (int16_t)l, hs = (int16_t)h;
+    int hi = hs;
+    int ai = ls + (hi & 1) + (hi >> 1);
+    a = (uint16_t)(int16_t)ai;
+    b = (uint16_t)(int16_t)(ai - hi);
+  };
+  auto dec16 = [](uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+    constexpr int kOffset = 1 << 15, kMask = (1 << 16) - 1;
+    int m = l, d = h;
+    int bb = (m - (d >> 1)) & kMask;
+    int aa = (d + bb - kOffset) & kMask;
+    b = (uint16_t)bb;
+    a = (uint16_t)aa;
+  };
+  auto dec = [&](uint16_t l, uint16_t h, uint16_t& a, uint16_t& b) {
+    if (w14) dec14(l, h, a, b); else dec16(l, h, a, b);
+  };
+  const int n = nx > ny ? ny : nx;
+  int p = 1;
+  while (p <= n) p <<= 1;
+  p >>= 1;
+  int p2 = p;
+  p >>= 1;
+  while (p >= 1) {
+    uint16_t* py = in;
+    uint16_t* ey = in + (int64_t)oy * (ny - p2);
+    const int64_t oy1 = (int64_t)oy * p, oy2 = (int64_t)oy * p2;
+    const int64_t ox1 = (int64_t)ox * p, ox2 = (int64_t)ox * p2;
+    uint16_t i00, i01, i10, i11;
+    for (; py <= ey; py += oy2) {
+      uint16_t* px = py;
+      uint16_t* ex = py + (int64_t)ox * (nx - p2);
+      for (; px <= ex; px += ox2) {
+        uint16_t* p01 = px + ox1;
+        uint16_t* p10 = px + oy1;
+        uint16_t* p11 = p10 + ox1;
+        dec(*px, *p10, i00, i10);
+        dec(*p01, *p11, i01, i11);
+        dec(i00, i01, *px, *p01);
+        dec(i10, i11, *p10, *p11);
+      }
+      if (nx & p) {
+        uint16_t* p10 = px + oy1;
+        dec(*px, *p10, i00, *p10);
+        *px = i00;
+      }
+    }
+    if (ny & p) {
+      uint16_t* px = py;
+      uint16_t* ex = py + (int64_t)ox * (nx - p2);
+      for (; px <= ex; px += ox2) {
+        uint16_t* p01 = px + ox1;
+        dec(*px, *p01, i00, *p01);
+        *px = i00;
+      }
+    }
+    p2 = p;
+    p >>= 1;
+  }
 }
 
 int ngp_native_version() { return 1; }

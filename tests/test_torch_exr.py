@@ -81,7 +81,7 @@ def test_compressed_blocks_are_smaller(tmp_path):
 
 
 @pytest.mark.parametrize("kind,match", [
-    (dict(compression="PIZ"), "PIZ compression"),
+    (dict(compression="B44"), "B44 compression"),
     (dict(version_flags=0x200), "tiled"),
     (dict(version_flags=0x1000), "multi-part"),
     (dict(version_flags=0x800), "deep")])

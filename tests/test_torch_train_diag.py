@@ -14,6 +14,8 @@ test size (grid 32, L=4, log2 T=12, 256 rays of 24x24 views):
 - a NaN planted in the table at block k is found at block k, and the
   probe names the table and the encode as the first non-finite leaf and
   stage on both paths;
+- the probe's `tail_check` on the kernels' tail inputs: the rounding
+  check passes the plain tail and refuses one 1e-4 off;
 - `dbg_pose`'s dR and dT gradients against the JAX script's on its own
   inputs within 2e-3 of their max (tests/test_torch_pose.py's limit), at
   S=64; at the JAX script's S=8 no ray is in the loss and both read 0.
@@ -46,12 +48,14 @@ from ngp_pl_torch.benchmarking import (
     dbg_pose,
     diag_demand,
     diag_demand2,
+    field_tail_gates,
     nan_hunt,
     nan_probe,
     nan_replay,
 )
 from ngp_pl_torch.datasets.synthetic import SyntheticDataset
 from ngp_pl_torch.models.ngp import NGP
+from ngp_pl_torch.ops.field_tail import field_tail_plain
 from ngp_pl_torch.training.checkpoint import (
     grid_state_from_numpy,
     load_train_state,
@@ -241,6 +245,34 @@ def test_planted_nan_is_found_at_its_block_and_named(monkeypatch, tmp_path):
                                       "plain": "h1 (encode+L1)"}
     assert rec["march"]["ts"]["nan"] == 0
     assert any("<==" in ln and "hash_table" in ln for ln in lines)
+
+
+def test_probe_tail_check_holds_the_tail_by_its_roundings():
+    """The probe's `tail_check` gets the kernels' path's tail inputs:
+    chip_smoke.py's check of K7 there (`tail_rounded_as` at 1e-5) passes
+    the plain tail itself with no flip and no error, and refuses a tail
+    whose rgb is 1e-4 off."""
+    system = _port_system(train_layout="auto")
+    system.on_train_start()
+    system.step_block()
+
+    def check(tail):
+        return lambda h1, sh, *ws: field_tail_gates.tail_rounded_as(
+            tail, h1, sh, *ws, 1e-5)[1]
+
+    def off(*args):
+        sigma, rgb = field_tail_plain(*args)
+        return sigma, rgb + 1e-4
+
+    rec = nan_probe.probe(system, log=None,
+                          tail_check=check(field_tail_plain))
+    got = rec["tail_check"]
+    assert got["out_of_window"] == got["flips"] == 0
+    assert got["max_rel_err"] == 0.0
+    assert nan_probe.probe(system, log=None)["tail_check"] is None
+    got = nan_probe.probe(system, log=None, tail_check=check(off))
+    got = got["tail_check"]
+    assert got["out_of_window"] > 0 or got["max_rel_err"] > 1e-5
 
 
 def _jax_pose_grads(n_samples):
