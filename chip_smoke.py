@@ -155,10 +155,10 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
   profile_rounds, micro_field, ablate_geom  the JAX repository's
            rounds-step, field-stack and geometry probes, in a spawned
            process of their own, each counted from 0 at its start there:
-           the rounds layout's parts after ROUNDS_WARM (256) warm steps
+           the rounds layout's parts after ROUNDS_WARM (128) warm steps
            (PROBE_RUNS calls a part, PROBE_BLOCK_RUNS blocks a layout),
            the MLP stack and the field's fwd+bwd bisection at 262,144
-           points, L16F2 and L8F4 after ABLATE_STEPS (256) steps (rays/s,
+           points, L16F2 and L8F4 after ABLATE_STEPS (128) steps (rays/s,
            PSNR, SSIM); every part's device ms > 0 and the kernels of
            each launched
   check_pallas_encode, check_field_tail, check_bwd_parts,
@@ -203,12 +203,19 @@ Phases, each printed as one JSON line; any failure raises and exits non-zero:
            fenced wall ms and device ms, the stages that partition a step
            summed against the full step; K1, K2+K5, K7, K8 must launch
   exr      ngp_pl_torch.misc.prepare_rtmv on copies of the committed EXR
-           trees (ZIP, RLE, ZIPS; PIZ and PXR24): their PNGs equal to
-           those the JAX script wrote, seconds per frame; a 1600x1600
-           RGBA half PIZ frame written by the test writer and read back
-           exactly, its read seconds; where the machine has an EXR reader
+           trees (ZIP, RLE, ZIPS; PIZ and PXR24; B44, B44A, DWAA, DWAB,
+           tiled, multi-part): their PNGs equal to those the JAX script
+           wrote, seconds per frame; where the machine has an EXR reader
            of its own (cv2 with OpenEXR, the OpenEXR module), the PIZ and
-           PXR24 frames read by it equal to `read_exr`'s
+           PXR24 frames read by it equal to `read_exr`'s; read_exr against
+           OpenEXR's own codec (cv2): a 256x256 RGBA half frame written in
+           each of the ten methods (by the test writer where OpenEXR's
+           file does not read back), every committed frame and a file of
+           DC-only DWA blocks over every half, each read by both, 0 half
+           ulps apart (null and why where cv2 has no writer or reader);
+           1600x1600 RGBA half frames in PIZ (read back exactly, every
+           block compressed), B44A and DWAA, read_exr's seconds beside
+           cv2's
 All of the train phases (train_reference, train, train_reference again,
 trained_render, profile, kernels) again in the strided layout
 (`_strided`: 8192 rays x S slots, the invalid ones at their ray's origin;
@@ -3313,11 +3320,11 @@ def shard_frame_path(torch, card, system, dev="cuda"):
     return rec
 
 
-ROUNDS_WARM = 256              # profile_rounds.py's PROF_WARM is 512
+ROUNDS_WARM = 128              # profile_rounds.py's PROF_WARM is 512
 PROBE_RUNS = 3                 # timed calls of each probe part (JAX: 20)
 PROBE_WARMUP = 1               # untimed calls before them (JAX: 3)
 PROBE_BLOCK_RUNS = 1           # timed 16-step blocks a layout (JAX: 6)
-ABLATE_STEPS = 256             # the script's --steps is 1536
+ABLATE_STEPS = 128             # the script's --steps is 1536
 
 
 def probe_paths(torch, card, dev="cuda"):
@@ -3663,7 +3670,7 @@ MICRO_WARMUP = 1               # untimed calls before them (the scripts: 20, 3)
 # micro_r2b's N (the script: 262,144): its inputs hold 2.7 GB draws, 20 s
 # of the host's time at the script's N
 MICRO_CUTS = {"micro_r2b": {"N": 65536}}
-MICRO_R4_STEPS = 256           # micro_r4's fit (the script: 512)
+MICRO_R4_STEPS = 128           # micro_r4's fit (the script: 512)
 TRAIN_QUICK_STEPS = 512        # train_quick's fit (the script: 2000)
 MICRO_TOL = {"K6": K6_TOL, "K1": K1_TOL, "K3": K1_TOL, "K2+K5": K2_TOL}
 # the kernels of each micro's `port: ` labels
@@ -3946,8 +3953,18 @@ def profile_step_path(torch, card, layout, dev="cuda"):
     return out
 
 
-EXR_TREES = {"rtmv_exr": 5, "rtmv_exr_piz": 3}     # tree: its frames
-EXR_BIG = 1600                 # RTMV's frame side: the timed PIZ frame
+EXR_TREES = {"rtmv_exr": 5, "rtmv_exr_piz": 3, "rtmv_exr_more": 6}
+EXR_BIG = 1600                 # RTMV's frame side: the timed frames
+EXR_SIDE = 256                 # the frames written by OpenEXR's encoder
+# the ten methods of OpenEXR 2's encoder, by cv2's names for them
+EXR_METHODS = {"NONE": "NO", "RLE": "RLE", "ZIPS": "ZIPS", "ZIP": "ZIP",
+               "PIZ": "PIZ", "PXR24": "PXR24", "B44": "B44", "B44A": "B44A",
+               "DWAA": "DWAA", "DWAB": "DWAB"}
+# read_exr against OpenEXR's decoder (cv2.imread) on the same bytes, in
+# half ulps of the values read: every method bit for bit, DWA's DCT
+# channels too (its inverse DCT follows OpenEXR's SSE2 order, which
+# OpenEXR 2.3 runs on this machine's x86-64 host)
+EXR_ULP_GATE = 0
 
 
 def _rtmv_tree(tree: str, tmp: str) -> dict:
@@ -4021,47 +4038,241 @@ def _other_exr_reader():
     return None, "; ".join(why)
 
 
+def _cv2_exr_writer():
+    """(cv2, its OpenEXR's version) where cv2 writes OpenEXR, else (None,
+    why not)."""
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    try:
+        import cv2
+    except ImportError as e:
+        return None, f"no cv2: {e}"
+    if not (cv2.haveImageWriter("f.exr")
+            and hasattr(cv2, "IMWRITE_EXR_COMPRESSION")):
+        return None, f"cv2 {cv2.__version__} has no OpenEXR writer"
+    version = [ln.split("ver")[-1].strip(" )") for ln in
+               cv2.getBuildInformation().splitlines() if "OpenEXR:" in ln]
+    return cv2, version[0] if version else "?"
+
+
+def _half_ulps(a, b) -> int:
+    """The largest distance between a and b (float32 arrays of half
+    values) in steps of the half grid."""
+    import numpy as np
+
+    def ordered(x):
+        i = x.astype(np.float16).view(np.int16).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFF), i)
+
+    return int(np.abs(ordered(a) - ordered(b)).max(initial=0))
+
+
+def _exr_frame(side, seed):
+    """Half RGBA radiance: smooth in [0, 2) with noise, a bright patch and
+    a negative one, alpha in [0, 1] with an opaque band."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:side, 0:side] / side
+    ch = {n: np.sin(7 * x * (k + 1)) * np.cos(5 * y) + 1.0
+          + 0.05 * rng.standard_normal(x.shape) for k, n in enumerate("RGB")}
+    ch["R"][:5, :7] = 3.5
+    ch["G"][10:14, 3:9] = -0.25
+    ch["A"] = np.clip(0.5 + 0.5 * np.sin(3 * x + 2 * y), 0, 1)
+    ch["A"][:, :4] = 1.0
+    return {n: a.astype(np.float16) for n, a in ch.items()}
+
+
+def _write_exr_frame(cv2, path, ch, method):
+    """`ch` written in `method` by cv2 (OpenEXR's encoder) where it writes
+    a file that OpenEXR reads back, else by the test writer: (who wrote
+    it, why not cv2 or None, seconds)."""
+    import numpy as np
+
+    from tests.exr_writer import write_exr
+
+    why = "no cv2 OpenEXR writer"
+    if cv2 is not None:
+        bgra = np.stack([ch[n] for n in "BGRA"], -1).astype(np.float32)
+        t0 = time.perf_counter()
+        ok = cv2.imwrite(path, bgra, [
+            cv2.IMWRITE_EXR_TYPE, cv2.IMWRITE_EXR_TYPE_HALF,
+            cv2.IMWRITE_EXR_COMPRESSION,
+            getattr(cv2, "IMWRITE_EXR_COMPRESSION_" + EXR_METHODS[method])])
+        seconds = time.perf_counter() - t0
+        if ok and cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None:
+            return "cv2 " + cv2.__version__, None, seconds
+        why = (f"cv2 {cv2.__version__} wrote {os.path.getsize(path)} bytes "
+               f"(imwrite {ok}) that cv2.imread cannot read back")
+    t0 = time.perf_counter()
+    write_exr(path, ch, method)
+    return "tests/exr_writer.py", why, time.perf_counter() - t0
+
+
+def exr_codec_path(tmp, cv2, openexr, name, read):
+    """read_exr against OpenEXR's own codec, where cv2 has it: an
+    EXR_SIDE^2 half RGBA frame in each of the ten methods, written by
+    OpenEXR's encoder (by the test writer where cv2's writes nothing it can
+    read back), read by read_exr and by OpenEXR's decoder (cv2.imread):
+    the count of differing values and the largest difference in half ulps
+    (gate EXR_ULP_GATE), and for the lossless methods read_exr against the
+    frame written.  Then the committed trees' frames read by both, in
+    half ulps (null where OpenEXR's reader does not read one, and why),
+    and a file of DC-only DWA blocks over every half (`dwa_table_probe`),
+    which reads OpenEXR's table to linear.  Returns the record and whether
+    it passes."""
+    import glob
+
+    import numpy as np
+
+    from ngp_pl_torch.datasets.exr import read_exr
+    from tests.exr_writer import dwa_table_probe
+
+    rec = dict(writer=None if cv2 is None else "cv2 " + cv2.__version__,
+               openexr=openexr if cv2 is not None else None,
+               writer_why_none=openexr if cv2 is None else None,
+               reader=name, reader_why_none=None if name else read,
+               ulp_gate=EXR_ULP_GATE)
+    ch = _exr_frame(EXR_SIDE, 0)
+    src = np.stack([ch[n] for n in "RGBA"], -1).astype(np.float32)
+    methods = {}
+    for method in EXR_METHODS:
+        path = os.path.join(tmp, f"codec_{method}.exr")
+        who, why, _ = _write_exr_frame(cv2, path, ch, method)
+        got = read_exr(path)
+        m = dict(writer=who, writer_why=why,
+                 bytes=os.path.getsize(path))
+        if method in ("NONE", "RLE", "ZIPS", "ZIP", "PIZ", "PXR24"):
+            m["equal_to_frame"] = bool(np.array_equal(got, src))
+        if name is None:
+            m.update(differ=None, max_ulps=None)
+        else:
+            other = read(path)
+            m.update(differ=int((got != other).sum()),
+                     max_ulps=_half_ulps(got, other))
+        methods[method] = m
+    rec["methods"] = methods
+    files = {}
+    for f in sorted(glob.glob(os.path.join(FIXTURES, "rtmv_exr*", "*",
+                                           "*.exr"))):
+        key = os.path.relpath(f, FIXTURES)
+        if name is None:
+            files[key] = None
+            continue
+        try:
+            other = read(f)
+        except ValueError as e:
+            files[key] = f"null: {e}"
+            continue
+        files[key] = _half_ulps(read_exr(f), other)
+    rec["fixtures_max_ulps"] = files
+    # OpenEXR's table to linear: DC-only blocks over every half
+    data, nonlinear = dwa_table_probe(np.arange(1 << 16, dtype=np.uint16))
+    path = os.path.join(tmp, "dwa_table.exr")
+    with open(path, "wb") as f:
+        f.write(data)
+    got = read_exr(path)
+    table = dict(values=int(got.size),
+                 distinct_nonlinear=int(np.unique(nonlinear).size),
+                 differ=None, max_ulps=None)
+    if name is not None:
+        other = read(path)
+        table.update(differ=int((got != other).sum()),
+                     max_ulps=_half_ulps(got, other))
+    rec["dwa_table"] = table
+    ulps = ([m["max_ulps"] for m in methods.values()]
+            + [v for v in files.values() if isinstance(v, int)]
+            + [table["max_ulps"]])
+    ok = (all(u is None or u <= EXR_ULP_GATE for u in ulps)
+          and all(m.get("equal_to_frame", True) for m in methods.values()))
+    return rec, ok
+
+
+def _blocks_compressed(path) -> tuple:
+    """(blocks, blocks stored compressed) of a single-part scanline file
+    of HALF channels."""
+    import struct
+
+    from ngp_pl_torch.datasets import exr
+
+    with open(path, "rb") as f:
+        data = f.read()
+    attrs, _, _, table, _ = exr._part0(path, data)
+    x0, y0, x1, y1 = struct.unpack("<4i", attrs["dataWindow"][1])
+    lines = exr.COMPRESSION[attrs["compression"][1][0]][1]
+    n_ch = len(exr._channels(path, attrs["channels"][1]))
+    h, w = y1 - y0 + 1, x1 - x0 + 1
+    n = -(-h // lines)
+    offsets = struct.unpack_from(f"<{n}Q", data, table)
+    sizes = [struct.unpack_from("<i", data, off + 4)[0] for off in offsets]
+    raw = [min(lines, h - lines * i) * w * 2 * n_ch for i in range(n)]
+    return n, sum(s < r for s, r in zip(sizes, raw))
+
+
+def timed_exr_reads(tmp, cv2, name, read) -> dict:
+    """read_exr's seconds on EXR_BIG^2 RGBA half frames in PIZ, B44A and
+    DWAA, each written by cv2 where its file reads back (else by the test
+    writer), beside OpenEXR's own reader (cv2.imread) on the same file and
+    the largest difference between the two in half ulps; the PIZ frame
+    read back exactly, every block of it compressed."""
+    import numpy as np
+
+    from ngp_pl_torch.datasets.exr import read_exr
+
+    ch = _exr_frame(EXR_BIG, 1)
+    ch["A"][:] = 1.0
+    src = np.stack([ch[n] for n in "RGBA"], -1).astype(np.float32)
+    out = {}
+    for method in ("PIZ", "B44A", "DWAA"):
+        path = os.path.join(tmp, f"big_{method}.exr")
+        who, why, write_s = _write_exr_frame(cv2, path, ch, method)
+        t0 = time.perf_counter()
+        got = read_exr(path)
+        t1 = time.perf_counter()
+        t = dict(side=EXR_BIG, writer=who, writer_why=why,
+                 write_seconds=write_s, mb=os.path.getsize(path) / 1e6,
+                 read_seconds=t1 - t0, other_read_seconds=None,
+                 max_ulps=None)
+        if method == "PIZ":
+            t["blocks"], t["blocks_compressed"] = _blocks_compressed(path)
+            t["exact"] = bool(np.array_equal(got, src))
+        if name is not None:
+            t0 = time.perf_counter()
+            other = read(path)
+            t.update(other_read_seconds=time.perf_counter() - t0,
+                     max_ulps=_half_ulps(got, other))
+        out[method.lower() + "_1600"] = t
+    return out
+
+
 def exr_path(card):
     """`prepare_rtmv` on copies of the committed EXR trees (EXR_TREES:
     ZIP, RLE and ZIPS frames; PIZ half, PIZ float with a data window off
-    the origin and DECREASING_Y, PXR24 float): every PNG it writes equal
-    to the committed one the JAX script wrote for the same frames, the
-    seconds per frame; then an EXR_BIG x EXR_BIG RGBA half PIZ frame
-    written by the test writer and read back bit-exactly, with the
-    seconds of `read_exr`; and where the machine has an OpenEXR reader of
-    its own, the PIZ and PXR24 frames read by it equal to `read_exr`'s
-    (else null and why)."""
+    the origin and DECREASING_Y, PXR24 float; B44, B44A, DWAA, DWAB, a
+    tiled ZIP frame with MIPMAP levels, a multi-part frame): every PNG it
+    writes equal to the committed one the JAX script wrote for the same
+    frames, the seconds per frame; where the machine has an OpenEXR
+    reader of its own, the PIZ and PXR24 frames read by it equal to
+    `read_exr`'s (else null and why); `exr_codec_path`: read_exr against
+    OpenEXR's own encoder and decoder in every method and on every
+    committed frame; `timed_exr_reads`: the EXR_BIG^2 reads timed beside
+    OpenEXR's."""
     import glob
     import importlib.util
 
     import numpy as np
 
     from ngp_pl_torch.datasets.exr import read_exr
-    from tests.exr_writer import write_exr
 
+    t_phase = time.perf_counter()
     rec = dict(card=card, imageio_installed=importlib.util.find_spec(
         "imageio") is not None)
+    cv2, openexr = _cv2_exr_writer()
+    name, read = _other_exr_reader()
     with _build_tmp() as tmp:
         rec["trees"] = {tree: _rtmv_tree(tree, tmp) for tree in EXR_TREES}
-        y, x = np.mgrid[0:EXR_BIG, 0:EXR_BIG] / EXR_BIG
-        rng = np.random.default_rng(0)
-        ch = {n: (np.sin(7 * x * (k + 1)) * np.cos(5 * y) + 1.0
-                  + 0.02 * rng.random(x.shape)).astype(np.float16)
-              for k, n in enumerate("RGB")}
-        ch["A"] = np.ones(x.shape, np.float16)
-        path = os.path.join(tmp, "big_piz.exr")
-        t0 = time.perf_counter()
-        packed = write_exr(path, ch, "PIZ")
-        t1 = time.perf_counter()
-        got = read_exr(path)
-        t2 = time.perf_counter()
-        rec["piz_1600"] = dict(
-            side=EXR_BIG, blocks=len(packed), blocks_compressed=sum(packed),
-            mb=os.path.getsize(path) / 1e6, write_seconds=t1 - t0,
-            read_seconds=t2 - t1, exact=bool(np.array_equal(
-                got, np.stack([ch[n] for n in "RGBA"], -1).astype(
-                    np.float32))))
-    name, read = _other_exr_reader()
+        rec["codec"], codec_ok = exr_codec_path(tmp, cv2, openexr, name,
+                                                read)
+        rec.update(timed_exr_reads(tmp, cv2, name, read))
     rec["other_reader"] = name
     if name is None:
         rec["other_reader_equal"] = None
@@ -4083,9 +4294,13 @@ def exr_path(card):
                    for tree, t in rec["trees"].items())
     other_ok = (rec["other_reader_equal"] is None
                 or all(rec["other_reader_equal"].values()))
-    if not (trees_ok and other_ok and rec["piz_1600"]["exact"]
-            and rec["piz_1600"]["blocks_compressed"]
-            == rec["piz_1600"]["blocks"]):
+    piz = rec["piz_1600"]
+    timed_ok = (piz["exact"] and piz["blocks_compressed"] == piz["blocks"]
+                and all(rec[k]["max_ulps"] is None
+                        or rec[k]["max_ulps"] <= EXR_ULP_GATE
+                        for k in ("piz_1600", "b44a_1600", "dwaa_1600")))
+    rec["seconds"] = time.perf_counter() - t_phase
+    if not (trees_ok and other_ok and codec_ok and timed_ok):
         raise AssertionError(f"exr: {rec}")
     return rec
 
@@ -4100,9 +4315,41 @@ def _bound_shares(rec, at="main"):
             yield from _bound_shares(v, key)
 
 
-def main() -> int:
+# The phases `--phases` selects, in the order they run; each is one or
+# more of the phase lines above.  eval_fps reads the slim checkpoint that
+# resume writes, so it runs only with resume.  Only a run of all of them
+# prints the kernels line.
+PHASES = ("kernels", "micro_fwd", "slice", "train", "resume", "ddp", "bench",
+          "fps", "probes", "eval_fps", "profile_step", "exr",
+          "train_strided", "train_rounds", "train_mc", "l16f2", "train_hdr",
+          "train_pose", "train_disk")
+NEEDS = {"eval_fps": "resume"}
+NO_KERNELS = {"exr"}            # phases that build and launch no kernel
+
+
+def parse_phases(argv) -> list:
+    """The phases of `--phases a,b,...` in run order; all of them when the
+    argument is absent."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="chip smoke of the port")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated, of: " + ", ".join(PHASES))
+    names = [p for p in parser.parse_args(argv).phases.split(",") if p]
+    unknown = sorted(set(names) - set(PHASES))
+    if unknown or not names:
+        parser.error(f"unknown phases {unknown}; choose from {PHASES}")
+    missing = [f"{p} needs {NEEDS[p]}" for p in names
+               if p in NEEDS and NEEDS[p] not in names]
+    if missing:
+        parser.error("; ".join(missing))
+    return [p for p in PHASES if p in names]
+
+
+def main(argv=None) -> int:
     import torch
 
+    phases = parse_phases(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4119,136 +4366,154 @@ def main() -> int:
          "nvidia_smi": card, "count": torch.cuda.device_count(),
          "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    t0 = time.perf_counter()
-    seconds = _build.build()
-    log({"phase": "build", "seconds": time.perf_counter() - t0,
-         "seconds_by_kernel": seconds,
-         "kernels": list(_build.KERNELS),
-         "ptxas": {k: [ln.strip() for ln in
-                       (_build.BUILD_DIR / f"{k}.log").read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
-                   for k in _build.KERNELS
-                   if (_build.BUILD_DIR / f"{k}.log").exists()}})
+    if set(phases) - NO_KERNELS:
+        t0 = time.perf_counter()
+        seconds = _build.build()
+        log({"phase": "build", "seconds": time.perf_counter() - t0,
+             "seconds_by_kernel": seconds,
+             "kernels": list(_build.KERNELS),
+             "ptxas": {k: [ln.strip() for ln in (
+                 _build.BUILD_DIR / f"{k}.log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+                 for k in _build.KERNELS
+                 if (_build.BUILD_DIR / f"{k}.log").exists()}})
 
     # the two geometries: the flagship L8F4 and the reference's L16F2
     tcfgs = {"flagship": train_config(downsample=6.25),
              "l16f2": train_config(downsample=6.25, n_levels=16,
                                    n_features=2)}
-    checks = {}
-    for path, kernel_checks in (
-            ("flagship", (("K1", lambda m: check_fwd(torch, m, "K1")),
-                          ("K7", lambda m: check_k7(torch, m)),
-                          ("K2+K5", lambda m: check_bwd(torch, m, "K2+K5")),
-                          ("K8", lambda m: check_k8(torch, m)),
-                          ("K6", lambda m: check_k6(torch)))),
-            ("l16f2", (("K3", lambda m: check_fwd(torch, m, "K3")),
-                       ("K4", lambda m: check_bwd(torch, m, "K4"))))):
-        tcfg = tcfgs[path]
-        model = NGP(tcfg.ngp_config(), seed=tcfg.seed, device="cuda")
-        for key, check in kernel_checks:
-            checks[key] = check(model)
-            log({"phase": "kernels", "kernel": key, "geometry": path,
-                 **checks[key]})
-            torch.cuda.empty_cache()
-        del model
-    for variant, check in check_k9(torch).items():
-        checks[f"K9/{variant}"] = check
-        log({"phase": "kernels", "kernel": f"K9/{variant}", **check})
+    # each kernel's checks, its readings on the paths added as they run
+    checks = {k: {} for k in ("K1", "K7", "K2+K5", "K8", "K6", "K3", "K4")}
+    if "kernels" in phases:
+        for path, kernel_checks in (
+                ("flagship", (("K1", lambda m: check_fwd(torch, m, "K1")),
+                              ("K7", lambda m: check_k7(torch, m)),
+                              ("K2+K5", lambda m: check_bwd(torch, m,
+                                                            "K2+K5")),
+                              ("K8", lambda m: check_k8(torch, m)),
+                              ("K6", lambda m: check_k6(torch)))),
+                ("l16f2", (("K3", lambda m: check_fwd(torch, m, "K3")),
+                           ("K4", lambda m: check_bwd(torch, m, "K4"))))):
+            tcfg = tcfgs[path]
+            model = NGP(tcfg.ngp_config(), seed=tcfg.seed, device="cuda")
+            for key, check in kernel_checks:
+                checks[key] = check(model)
+                log({"phase": "kernels", "kernel": key, "geometry": path,
+                     **checks[key]})
+                torch.cuda.empty_cache()
+            del model
+        for variant, check in check_k9(torch).items():
+            checks[f"K9/{variant}"] = check
+            log({"phase": "kernels", "kernel": f"K9/{variant}", **check})
 
     # the K9 bench: counts from 0 just before, read just after
     launches = {}
-    micro, launches["micro_fwd"] = micro_fwd_path(torch, card)
+    if "micro_fwd" in phases:
+        micro, launches["micro_fwd"] = micro_fwd_path(torch, card)
 
     # the render path: counts from 0 just before, read just after
-    tcfg = tcfgs["flagship"]
-    res, out = render_slice(torch, tcfg, views=2)
-    launches["render"] = out["launches"]
-    log({"phase": "slice", "card": card, **out})
-    log({"phase": "ckpt", **ckpt_roundtrip(torch, res, tcfg)})
-    log({"phase": "reference", **reference_crop(torch, res, tcfg)})
-    log({"phase": "profile", "of": "frame", "card": card,
-         **profile_frame(torch, res, tcfg)})
-    del res
-    torch.cuda.empty_cache()
+    if "slice" in phases:
+        tcfg = tcfgs["flagship"]
+        res, out = render_slice(torch, tcfg, views=2)
+        launches["render"] = out["launches"]
+        log({"phase": "slice", "card": card, **out})
+        log({"phase": "ckpt", **ckpt_roundtrip(torch, res, tcfg)})
+        log({"phase": "reference", **reference_crop(torch, res, tcfg)})
+        log({"phase": "profile", "of": "frame", "card": card,
+             **profile_frame(torch, res, tcfg)})
+        del res
+        torch.cuda.empty_cache()
     # the train path: counts from 0 just before fit, read just after
-    train, at_step = train_path(torch, card, "", "flagship")
-    for key, rec in at_step.items():
-        checks[key]["at_train_step"] = rec
-    launches["train"] = train["launches"]
+    if "train" in phases:
+        train, at_step = train_path(torch, card, "", "flagship")
+        for key, rec in at_step.items():
+            checks[key]["at_train_step"] = rec
+        launches["train"] = train["launches"]
 
     # full checkpoints, resumed; the trained system's validation dumps; the
     # bench entry point: each counted from 0 at its start
-    system, tb, resume = resume_path(torch)
-    launches["resume"] = resume["launches"]
-    log({"phase": "resume", "card": card, **resume})
-    log({"phase": "tensorboard", **tb})
-    log({"phase": "validate", "card": card,
-         **validate_dumps(torch, system)})
-    # what users do with that trained field: its slim checkpoint through
-    # the mesh and viewer entry points (each counted from 0 at its start),
-    # LPIPS, and the reference-layout grid ops
-    # (the slim checkpoint stays until `eval_fps` has read it)
-    slim_dir = _build_tmp()
-    slim = os.path.join(slim_dir.name, "slim.npz")
-    system.save_slim(slim)
-    mesh, checks["K1"]["at_mesh_grid"] = mesh_path(
-        torch, card, slim, [], MESH_RES, "K1")
-    launches["mesh"] = mesh["launches"]
-    log({"phase": "mesh", **mesh})
-    log({"phase": "kernels", "kernel": "K1", "input": "mesh_grid",
-         "card": card, **checks["K1"]["at_mesh_grid"]})
-    gui = gui_path(torch, card, slim)
-    launches["gui"] = gui["launches"]
-    log({"phase": "gui", **gui})
-    log({"phase": "lpips", **lpips_path(torch, card, system)})
-    log({"phase": "interop", **interop_path(torch, card, system)})
-    del system
-    torch.cuda.empty_cache()
+    if "resume" in phases:
+        system, tb, resume = resume_path(torch)
+        launches["resume"] = resume["launches"]
+        log({"phase": "resume", "card": card, **resume})
+        log({"phase": "tensorboard", **tb})
+        log({"phase": "validate", "card": card,
+             **validate_dumps(torch, system)})
+        # what users do with that trained field: its slim checkpoint
+        # through the mesh and viewer entry points (each counted from 0 at
+        # its start), LPIPS, and the reference-layout grid ops (the slim
+        # checkpoint stays until `eval_fps` has read it)
+        slim_dir = _build_tmp()
+        slim = os.path.join(slim_dir.name, "slim.npz")
+        system.save_slim(slim)
+        mesh, checks["K1"]["at_mesh_grid"] = mesh_path(
+            torch, card, slim, [], MESH_RES, "K1")
+        launches["mesh"] = mesh["launches"]
+        log({"phase": "mesh", **mesh})
+        log({"phase": "kernels", "kernel": "K1", "input": "mesh_grid",
+             "card": card, **checks["K1"]["at_mesh_grid"]})
+        gui = gui_path(torch, card, slim)
+        launches["gui"] = gui["launches"]
+        log({"phase": "gui", **gui})
+        log({"phase": "lpips", **lpips_path(torch, card, system)})
+        log({"phase": "interop", **interop_path(torch, card, system)})
+        del system
+        torch.cuda.empty_cache()
     # data parallelism: one NCCL rank, then two gloo ranks on this card
-    ddp = ddp_path(torch, card)
-    launches["ddp"] = ddp["launches"]
-    log({"phase": "ddp", **ddp})
-    bench = bench_path(torch)
-    launches["bench"] = bench["launches"]
-    log({"phase": "bench", "card": card, **bench})
+    if "ddp" in phases:
+        ddp = ddp_path(torch, card)
+        launches["ddp"] = ddp["launches"]
+        log({"phase": "ddp", **ddp})
+    if "bench" in phases:
+        bench = bench_path(torch)
+        launches["bench"] = bench["launches"]
+        log({"phase": "bench", "card": card, **bench})
     # the JAX repository's measurement and data scripts, each counted from
     # 0 at its start: render FPS at T 1e-2, the eval FPS loop from the slim
     # checkpoint, the train step stage by stage, EXR input
-    fps, system = fps_path(torch)
-    launches["fps"] = fps["launches"]
-    log({"phase": "fps", **fps})
-    # the JAX package's two other renderers and the JAX repository's
-    # serving and march probes, on the system `fps` trained, each counted
-    # from 0 at its start
-    launches.update(serving_paths(torch, card, system))
-    # one frame's rays over ranks, on the same system and frame
-    shard = shard_frame_path(torch, card, system)
-    launches["shard_frame"] = shard["launches"]
-    log({"phase": "shard_frame", **shard})
-    del system
-    torch.cuda.empty_cache()
+    if "fps" in phases:
+        fps, system = fps_path(torch)
+        launches["fps"] = fps["launches"]
+        log({"phase": "fps", **fps})
+        # the JAX package's two other renderers and the JAX repository's
+        # serving and march probes, on the system `fps` trained, each
+        # counted from 0 at its start
+        launches.update(serving_paths(torch, card, system))
+        # one frame's rays over ranks, on the same system and frame
+        shard = shard_frame_path(torch, card, system)
+        launches["shard_frame"] = shard["launches"]
+        log({"phase": "shard_frame", **shard})
+        del system
+        torch.cuda.empty_cache()
     # the JAX repository's rounds-step, field-stack and geometry probes,
     # its encode and field-tail checks, demand traces, NaN tools and
     # pose-gradient check, and its primitive micros and quick-train
     # script, each group in a fresh process
-    launches.update(probes_in_child(card, "probes"))
-    launches.update(probes_in_child(card, "checks"))
-    # the JAX repository's primitive micros and quick-train script
-    launches.update(probes_in_child(card, "micros"))
-    launches.update(probes_in_child(card, "micros_encode"))
-    eval_fps = eval_fps_path(torch, card, slim)
-    slim_dir.cleanup()
-    launches["eval_fps"] = eval_fps["launches"]
-    log({"phase": "eval_fps", **eval_fps})
-    for layout in ("csr", "strided"):
-        prof = profile_step_path(torch, card, layout)
-        launches["profile_step_" + layout] = prof["launches"]
-        log({"phase": "profile_step", **prof})
-    log({"phase": "exr", **exr_path(card)})
+    if "probes" in phases:
+        launches.update(probes_in_child(card, "probes"))
+        launches.update(probes_in_child(card, "checks"))
+        # the JAX repository's primitive micros and quick-train script
+        launches.update(probes_in_child(card, "micros"))
+        launches.update(probes_in_child(card, "micros_encode"))
+    if "eval_fps" in phases:
+        eval_fps = eval_fps_path(torch, card, slim)
+        launches["eval_fps"] = eval_fps["launches"]
+        log({"phase": "eval_fps", **eval_fps})
+    if "resume" in phases:
+        slim_dir.cleanup()
+    if "profile_step" in phases:
+        for layout in ("csr", "strided"):
+            prof = profile_step_path(torch, card, layout)
+            launches["profile_step_" + layout] = prof["launches"]
+            log({"phase": "profile_step", **prof})
+    if "exr" in phases:
+        log({"phase": "exr", **exr_path(card)})
 
     # the flagship in the strided layout and in rounds with the distortion
     # loss, counted the same way
     for layout in ("strided", "rounds"):
+        if "train_" + layout not in phases:
+            continue
         suffix = "_" + layout
         train, at_step = train_path(
             torch, card, suffix, layout, at_step=layout == "strided",
@@ -4258,56 +4523,71 @@ def main() -> int:
         launches["train" + suffix] = train["launches"]
 
     # the multi-cascade scene at scale 4, counted the same way
-    train, mc = mc_path(torch, card)
-    for key, rec in mc.items():
-        checks[key].update(rec)
-    launches["train_mc"] = train["launches"]
+    if "train_mc" in phases:
+        train, mc = mc_path(torch, card)
+        for key, rec in mc.items():
+            checks[key].update(rec)
+        launches["train_mc"] = train["launches"]
 
     # the L16F2 render and train paths, counted the same way
-    tcfg = tcfgs["l16f2"]
-    res, out = render_slice(torch, tcfg, views=1)
-    launches["render_l16f2"] = out["launches"]
-    log({"phase": "slice_l16f2", "card": card, **out})
-    log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
-    del res
-    torch.cuda.empty_cache()
-    with _build_tmp() as tmp:
-        slim = os.path.join(tmp, "slim_l16f2.npz")
-        train, at_step = train_path(
-            torch, card, "_l16f2", "l16f2", seeded_tol=STEP_TOL_L16F2,
-            alone=("K3", "K4"), slim_path=slim)
-        for key, rec in at_step.items():
-            checks[key]["at_train_step"] = rec
-        launches["train_l16f2"] = train["launches"]
-        # the trained L16F2 field's mesh, K3 on the path
-        mesh, checks["K3"]["at_mesh_grid"] = mesh_path(
-            torch, card, slim, ["--n_levels", "16", "--n_features", "2"],
-            MESH_RES_L16F2, "K3")
-        launches["mesh_l16f2"] = mesh["launches"]
-        log({"phase": "mesh_l16f2", **mesh})
-        log({"phase": "kernels", "kernel": "K3", "input": "mesh_grid",
-             "card": card, **checks["K3"]["at_mesh_grid"]})
+    if "l16f2" in phases:
+        tcfg = tcfgs["l16f2"]
+        res, out = render_slice(torch, tcfg, views=1)
+        launches["render_l16f2"] = out["launches"]
+        log({"phase": "slice_l16f2", "card": card, **out})
+        log({"phase": "ckpt_l16f2", **ckpt_roundtrip(torch, res, tcfg)})
+        del res
+        torch.cuda.empty_cache()
+        with _build_tmp() as tmp:
+            slim = os.path.join(tmp, "slim_l16f2.npz")
+            train, at_step = train_path(
+                torch, card, "_l16f2", "l16f2", seeded_tol=STEP_TOL_L16F2,
+                alone=("K3", "K4"), slim_path=slim)
+            for key, rec in at_step.items():
+                checks[key]["at_train_step"] = rec
+            launches["train_l16f2"] = train["launches"]
+            # the trained L16F2 field's mesh, K3 on the path
+            mesh, checks["K3"]["at_mesh_grid"] = mesh_path(
+                torch, card, slim, ["--n_levels", "16", "--n_features", "2"],
+                MESH_RES_L16F2, "K3")
+            launches["mesh_l16f2"] = mesh["launches"]
+            log({"phase": "mesh_l16f2", **mesh})
+            log({"phase": "kernels", "kernel": "K3", "input": "mesh_grid",
+                 "card": card, **checks["K3"]["at_mesh_grid"]})
 
     # the HDR head and pose refinement on the flagship, counted the same way
-    launches["train_hdr"] = hdr_path(torch, card)["launches"]
-    launches["train_pose"] = pose_path(torch, card)["launches"]
+    if "train_hdr" in phases:
+        launches["train_hdr"] = hdr_path(torch, card)["launches"]
+    if "train_pose" in phases:
+        launches["train_pose"] = pose_path(torch, card)["launches"]
 
     # the flagship on a Blender scene on disk through the train entry point,
     # then the same scene's batches drawn on the host; counted the same way
-    with _build_tmp() as tmp:
-        system, disk = disk_path(torch, card, os.path.join(tmp, "lego"))
-        launches["train_disk"] = disk["launches"]
-        log({"phase": "train_disk", **disk})
-        log({"phase": "train_reference_disk", "state": "trained",
-             **trained_gate(torch, system, "disk")})
-        tcfg, datasets = system.tcfg, (system.train_dataset,
-                                       system.test_dataset)
-        del system
-        torch.cuda.empty_cache()
-        host = host_batch_path(torch, card, tcfg, *datasets)
-        del datasets
-        launches["host_batches"] = host["launches"]
-        log({"phase": "host_batches", **host})
+    if "train_disk" in phases:
+        with _build_tmp() as tmp:
+            system, disk = disk_path(torch, card, os.path.join(tmp, "lego"))
+            launches["train_disk"] = disk["launches"]
+            log({"phase": "train_disk", **disk})
+            log({"phase": "train_reference_disk", "state": "trained",
+                 **trained_gate(torch, system, "disk")})
+            tcfg, datasets = system.tcfg, (system.train_dataset,
+                                           system.test_dataset)
+            del system
+            torch.cuda.empty_cache()
+            host = host_batch_path(torch, card, tcfg, *datasets)
+            del datasets
+            launches["host_batches"] = host["launches"]
+            log({"phase": "host_batches", **host})
+
+    if phases != list(PHASES):
+        # a partial run: no kernels line, since it holds every path's
+        # launches and readings
+        print(card, flush=True)
+        log({"phases": phases, "seconds": time.perf_counter() - t_start})
+        log({"ok": True, "device": {"platform": "gpu",
+                                    "kind": torch.cuda.get_device_name(0),
+                                    "count": torch.cuda.device_count()}})
+        return 0
 
     no_library = "no single PyTorch call computes this function"
     rows = (("hash_encode_fwd (K1)", "K1", "hash_encode_fwd.cu",

@@ -1,6 +1,7 @@
 """The port's host library (C++, loaded with ctypes): ray-batch sampling,
-u8 image ingest, box downsampling, the PNG row unfilter and the OpenEXR
-PIZ decoder's Huffman and wavelet stages.
+u8 image ingest, box downsampling, the PNG row unfilter, the OpenEXR
+PIZ decoder's Huffman and wavelet stages and the DWA decoder's per-block
+loop.
 
 Counterpart of ngp_pl_tpu/native/__init__.py, with its own copy of the
 source (`ray_sampler.cpp`), since the port imports nothing of the JAX
@@ -15,9 +16,9 @@ Setting `NGP_PL_TORCH_NO_NATIVE` asks for the numpy versions instead, as
 `NGP_PL_TPU_NO_NATIVE` does in the JAX package: then `get_lib()` returns
 None and the callers of sampling and u8 ingest (`datasets/base.py`,
 `datasets/color_utils.py`) take their numpy branch.  Nothing else selects
-that branch.  The PNG unfilter and the PIZ stages have no numpy branch
-(each step depends on the one before) and build the library whatever the
-variable says.
+that branch.  The PNG unfilter, the PIZ stages and the DWA block loop
+have no numpy branch (each step depends on the one before) and build the
+library whatever the variable says.
 """
 from __future__ import annotations
 
@@ -89,6 +90,10 @@ def _load(so: Path) -> ctypes.CDLL:
     lib.ngp_piz_huf_decode.restype = i64
     lib.ngp_piz_wav2_decode.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_int32] * 4 + [ctypes.c_uint16])
+    lib.ngp_dwa_dct_decode.argtypes = [
+        ctypes.c_void_p, i64, ctypes.c_void_p, i32, i32, i32,
+        ctypes.c_void_p]
+    lib.ngp_dwa_dct_decode.restype = i64
     lib.ngp_native_version.restype = ctypes.c_int
     return lib
 
@@ -242,3 +247,26 @@ def piz_wav2_decode(buf: np.ndarray, start: int, nx: int, ox: int, ny: int,
             or start + (nx - 1) * ox + (ny - 1) * oy >= buf.size):
         raise ValueError("the wavelet's plane lies outside the buffer")
     lib.ngp_piz_wav2_decode(buf.ctypes.data + 2 * start, nx, ox, ny, oy, mx)
+
+
+def dwa_dct_decode(ac: np.ndarray, dc: np.ndarray, n_comp: int, width: int,
+                   height: int):
+    """The LOSSY_DCT channels of a DWA block (OpenEXR's LossyDctDecoder,
+    one channel or an R, G, B set): `dc` the n_comp planes of the 8x8
+    blocks' DC values, `ac` the AC values from the set's first (u16 half
+    bits both).  Returns the (n_comp, height, width) nonlinear half bits
+    and the count of AC values taken; ValueError when they run out."""
+    lib = _built()
+    n_blocks = -(-width // 8) * -(-height // 8)
+    if (ac.dtype != np.uint16 or dc.dtype != np.uint16
+            or n_comp not in (1, 3) or dc.size != n_comp * n_blocks):
+        raise ValueError(f"DWA DCT data: {n_comp} components of "
+                         f"{width}x{height} with {dc.size} DC values")
+    ac = np.ascontiguousarray(ac)
+    dc = np.ascontiguousarray(dc)
+    out = np.empty((n_comp, height, width), np.uint16)
+    used = lib.ngp_dwa_dct_decode(ac.ctypes.data, ac.size, dc.ctypes.data,
+                                  n_comp, width, height, out.ctypes.data)
+    if used < 0:
+        raise ValueError("runs out of AC values")
+    return out, used

@@ -12,11 +12,13 @@
 // depend on the byte just decoded, so they run here rather than in numpy.
 // So are the OpenEXR PIZ decoder's two bit-serial stages,
 // `ngp_piz_huf_decode` (OpenEXR's ImfHuf.cpp) and `ngp_piz_wav2_decode`
-// (ImfWav.cpp); the rest of PIZ is numpy in datasets/exr.py.
+// (ImfWav.cpp), and the DWA decoder's per-block loop, `ngp_dwa_dct_decode`
+// (ImfDwaCompressor.cpp); the rest of both is numpy in datasets/exr.py.
 //
 // Exposed through a plain C ABI and loaded with ctypes; all buffers are
 // caller-allocated numpy arrays.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
@@ -82,6 +84,121 @@ void parallel_for(int64_t n, F body, int max_threads = 0) {
     ts.emplace_back([=] { body(lo, hi); });
   }
   for (auto& t : ts) t.join();
+}
+
+// OpenEXR DWAA/DWAB helpers (ImfDwaCompressor.cpp, ImfDwaCompressorSimd.h):
+// half <-> float as Imath's half does it (to half: round to nearest, ties
+// to even; past HALF_MAX to infinity), and the inverse 8x8 DCT with the
+// first pass over the rows that can hold a coefficient (the others are
+// zero).
+float half_to_float(uint16_t h) {
+  uint32_t s = (uint32_t)(h & 0x8000) << 16, e = (h >> 10) & 0x1f,
+           m = h & 0x3ff, bits;
+  if (e == 0 && m == 0) {
+    bits = s;
+  } else if (e == 0) {
+    e = 127 - 15 + 1;
+    while (!(m & 0x400)) {
+      m <<= 1;
+      e--;
+    }
+    bits = s | (e << 23) | ((m & 0x3ff) << 13);
+  } else if (e == 31) {
+    bits = s | 0x7f800000 | (m << 13);
+  } else {
+    bits = s | ((e + 127 - 15) << 23) | (m << 13);
+  }
+  float f;
+  std::memcpy(&f, &bits, 4);
+  return f;
+}
+
+uint16_t float_to_half(float f) {
+  uint32_t x;
+  std::memcpy(&x, &f, 4);
+  const uint32_t s = (x >> 16) & 0x8000;
+  int32_t e = (int32_t)((x >> 23) & 0xff) - (127 - 15);
+  uint32_t m = x & 0x7fffff;
+  if (e <= 0) {
+    if (e < -10) return (uint16_t)s;
+    m |= 0x800000;
+    const int t = 14 - e;
+    const uint32_t a = (1u << (t - 1)) - 1, b = (m >> t) & 1;
+    return (uint16_t)(s | ((m + a + b) >> t));
+  }
+  if (e == 0xff - (127 - 15)) {
+    if (m == 0) return (uint16_t)(s | 0x7c00);
+    m >>= 13;
+    return (uint16_t)(s | 0x7c00 | m | (m == 0));
+  }
+  m = m + 0xfff + ((m >> 13) & 1);
+  if (m & 0x800000) {
+    m = 0;
+    e += 1;
+  }
+  if (e > 30) return (uint16_t)(s | 0x7c00);
+  return (uint16_t)(s | (e << 10) | (m >> 13));
+}
+
+// dctInverse8x8_sse2<zeroedRows>, its float operations in its order: the
+// order OpenEXR runs on x86-64 (SSE2 is always there), where it decodes
+// bit for bit as OpenEXR 2.3 does (the scalar path, with constants from
+// cosf and its sums in another order, misses some values by a rounding).
+// Rows as a product: the even outputs' sum of X0, X2, X4, X6 times the
+// columns of M1, the odd ones' of X1, X3, X5, X7 times M2, each summed
+// left to right; out[k] = even + odd, out[7 - k] = even - odd.  Columns
+// through the factored form, the odd sums in pairs.
+void dct_inverse_8x8(float* data, int zeroed_rows) {
+  const float a = 3.535536e-01f, b = 4.903927e-01f, c = 4.619398e-01f,
+              d = 4.157349e-01f, e = 2.777855e-01f, f = 1.913422e-01f,
+              g = 9.754573e-02f;
+  const float m1[4][4] = {{a, c, a, f}, {a, f, -a, -c}, {a, -f, -a, c},
+                          {a, -c, a, -f}};
+  const float m2[4][4] = {{b, d, e, g}, {d, -g, -b, -e}, {e, -b, g, d},
+                          {g, -e, d, -b}};
+  for (int row = 0; row < 8 - zeroed_rows; ++row) {
+    float* r = data + row * 8;
+    float even[4], odd[4];
+    for (int k = 0; k < 4; ++k) {
+      even[k] = r[0] * m1[k][0] + r[2] * m1[k][1] + r[4] * m1[k][2] +
+                r[6] * m1[k][3];
+      odd[k] = r[1] * m2[k][0] + r[3] * m2[k][1] + r[5] * m2[k][2] +
+               r[7] * m2[k][3];
+    }
+    for (int k = 0; k < 4; ++k) {
+      r[k] = even[k] + odd[k];
+      r[7 - k] = even[k] - odd[k];
+    }
+  }
+  float alpha[4], beta[4], theta[4], gamma[4];
+  for (int col = 0; col < 8; ++col) {
+    float in[8];
+    for (int i = 0; i < 8; ++i) in[i] = data[8 * i + col];
+    alpha[0] = c * in[2];
+    alpha[1] = f * in[2];
+    alpha[2] = c * in[6];
+    alpha[3] = f * in[6];
+    beta[0] = (b * in[1] + d * in[3]) + (e * in[5] + g * in[7]);
+    beta[1] = (d * in[1] - g * in[3]) - (b * in[5] + e * in[7]);
+    beta[2] = (e * in[1] - b * in[3]) + (g * in[5] + d * in[7]);
+    beta[3] = (g * in[1] - e * in[3]) + (d * in[5] - b * in[7]);
+    theta[0] = a * (in[0] + in[4]);
+    theta[3] = a * (in[0] - in[4]);
+    theta[1] = alpha[0] + alpha[3];
+    theta[2] = alpha[1] - alpha[2];
+    gamma[0] = theta[0] + theta[1];
+    gamma[1] = theta[3] + theta[2];
+    gamma[2] = theta[3] - theta[2];
+    gamma[3] = theta[0] - theta[1];
+    data[col] = gamma[0] + beta[0];
+    data[8 + col] = gamma[1] + beta[1];
+    data[16 + col] = gamma[2] + beta[2];
+    data[24 + col] = gamma[3] + beta[3];
+    data[32 + col] = gamma[3] - beta[3];
+    data[40 + col] = gamma[2] - beta[2];
+    data[48 + col] = gamma[1] - beta[1];
+    data[56 + col] = gamma[0] - beta[0];
+  }
 }
 
 }  // namespace
@@ -421,6 +538,83 @@ void ngp_piz_wav2_decode(uint16_t* in, int32_t nx, int32_t ox, int32_t ny,
     p2 = p;
     p >>= 1;
   }
+}
+
+// OpenEXR DWAA/DWAB: the LOSSY_DCT channels of one block, one channel
+// (n_comp 1) or an R, G, B set (3), as ImfDwaCompressor.cpp's
+// LossyDctDecoder::execute does with its SSE2 inverse DCT.  Blocks of 8x8, rows of
+// blocks first; `dc` holds each component's plane of DC values (half bits)
+// one after the other, `ac` (n_ac u16) the AC values of every block in
+// turn, each component's in turn within a block, in zigzag order:
+// 0xff00 ends a block, 0xff00 | n skips n zeros, anything else is the next
+// coefficient.  A block whose AC is all zeros is its DC value times
+// 3.535536e-01f twice; any other goes through the inverse DCT.  A set then
+// goes from Y'CbCr to R'G'B' (csc709Inverse).  Writes each component's
+// height x width nonlinear half bits to `out`, the edge blocks cut back;
+// returns the AC values taken, or -1 when they run out.
+int64_t ngp_dwa_dct_decode(const uint16_t* ac, int64_t n_ac,
+                           const uint16_t* dc, int32_t n_comp, int32_t width,
+                           int32_t height, uint16_t* out) {
+  static const int kFromZig[64] = {
+      0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42,
+      3,  8,  12, 17, 25, 30, 41, 43, 9,  11, 18, 24, 31, 40, 44, 53,
+      10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38, 46, 51, 55, 60,
+      21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
+  const int nbx = (width + 7) / 8, nby = (height + 7) / 8;
+  const int64_t plane = (int64_t)width * height;
+  int64_t at = 0;
+  float data[3][64];
+  uint16_t zig[64];
+  for (int by = 0; by < nby; ++by) {
+    for (int bx = 0; bx < nbx; ++bx) {
+      for (int comp = 0; comp < n_comp; ++comp) {
+        std::memset(zig, 0, sizeof zig);
+        zig[0] = dc[(int64_t)comp * nbx * nby + (int64_t)by * nbx + bx];
+        int last = 0, k = 1;
+        while (k < 64) {
+          if (at >= n_ac) return -1;
+          const uint16_t v = ac[at++];
+          if (v == 0xff00) {
+            k = 64;
+          } else if ((v >> 8) == 0xff) {
+            k += v & 0xff;
+          } else {
+            last = k;
+            zig[k++] = v;
+          }
+        }
+        float* blk = data[comp];
+        if (last == 0) {
+          const float val = half_to_float(zig[0]) * 3.535536e-01f *
+                            3.535536e-01f;
+          for (int i = 0; i < 64; ++i) blk[i] = val;
+          continue;
+        }
+        for (int i = 0; i < 64; ++i) blk[i] = half_to_float(zig[kFromZig[i]]);
+        const int zeroed = last < 2 ? 7 : last < 3 ? 6 : last < 9 ? 5
+                         : last < 10 ? 4 : last < 20 ? 3 : last < 21 ? 2
+                         : last < 35 ? 1 : 0;
+        dct_inverse_8x8(blk, zeroed);
+      }
+      if (n_comp == 3) {
+        for (int i = 0; i < 64; ++i) {
+          const float y = data[0][i], cb = data[1][i], cr = data[2][i];
+          data[0][i] = y + 1.5747f * cr;
+          data[1][i] = y - 0.1873f * cb - 0.4682f * cr;
+          data[2][i] = y + 1.8556f * cb;
+        }
+      }
+      const int nx = std::min(8, width - 8 * bx);
+      const int ny = std::min(8, height - 8 * by);
+      for (int comp = 0; comp < n_comp; ++comp) {
+        uint16_t* o = out + comp * plane + (int64_t)(8 * by) * width + 8 * bx;
+        for (int y = 0; y < ny; ++y)
+          for (int x = 0; x < nx; ++x)
+            o[(int64_t)y * width + x] = float_to_half(data[comp][8 * y + x]);
+      }
+    }
+  }
+  return at;
 }
 
 int ngp_native_version() { return 1; }

@@ -12,6 +12,11 @@ tests/test_torch_exr.py and chip_smoke.py's `exr` phase):
   (`PIZ_KINDS`: PIZ half RGBA; PIZ float RGBA with a data window off the
   origin and DECREASING_Y; PXR24 float RGBA, whose arrays are the 24-bit
   values the file holds).
+- rtmv_exr_more/<scene>/... the same for one scene of the other layouts
+  and methods (`MORE_KINDS`: B44 and B44A half RGBA; DWAA half RGBA; DWAB
+  float RGB off the origin and DECREASING_Y; a tiled ZIP frame with MIPMAP
+  levels; a multi-part file whose part 0 is a PIZ frame), whose arrays are
+  what the writer says the files hold.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from pathlib import Path
 
 import numpy as np
 
-from tests.exr_writer import float24, write_exr
+from tests.exr_writer import (encode_exr, encode_multipart, float24,
+                              write_exr)
 
 REPO = Path(__file__).resolve().parent.parent
 OUT = REPO / "tests" / "fixtures"
@@ -31,6 +37,16 @@ EXR_KINDS = {"scene_a": [("ZIP", (0, 0), "INCREASING_Y")] * 2,
              "scene_b": [("ZIP", (0, 0), "INCREASING_Y"),
                          ("RLE", (4, 1), "DECREASING_Y"),
                          ("ZIPS", (0, 0), "INCREASING_Y")]}
+# name -> (compression, dtype, origin, line order, encode_exr's options);
+# "multipart" puts the frame in part 0 beside a tiled part 1
+MORE_KINDS = {"scene_m": [
+    ("B44", np.float16, (0, 0), "INCREASING_Y", {}),
+    ("B44A", np.float16, (0, 0), "INCREASING_Y", {}),
+    ("DWAA", np.float16, (0, 0), "INCREASING_Y", {}),
+    ("DWAB", np.float32, (2, -3), "DECREASING_Y", {}),
+    ("ZIP", np.float16, (0, 0), "INCREASING_Y",
+     {"tiles": (16, 16, "MIPMAP", "DOWN")}),
+    ("PIZ", np.float16, (0, 0), "INCREASING_Y", {"multipart": True})]}
 PIZ_KINDS = {"scene_p": [("PIZ", np.float16, (0, 0), "INCREASING_Y"),
                          ("PIZ", np.float32, (-3, 5), "DECREASING_Y"),
                          ("PXR24", np.float32, (0, 0), "INCREASING_Y")]}
@@ -91,6 +107,38 @@ def write_piz_exrs():
     jax_expected(root, frames)
 
 
+def write_more_exrs():
+    """rtmv_exr_more: MORE_KINDS' frames, every block stored compressed;
+    RGB for the RGB frame and RGBA for the others."""
+    root = OUT / "rtmv_exr_more"
+    shutil.rmtree(root, ignore_errors=True)
+    frames = {}
+    for scene, kinds in MORE_KINDS.items():
+        (root / scene).mkdir(parents=True)
+        for i, (comp, dtype, origin, order, kw) in enumerate(kinds):
+            ch = piz_frame(40 + i, dtype)
+            if dtype == np.float32:
+                del ch["A"]
+            kw = dict(kw)
+            if kw.pop("multipart", False):
+                enc = encode_multipart([
+                    dict(channels=ch, compression=comp, origin=origin,
+                         line_order=order, name="rgba"),
+                    dict(channels=piz_frame(50, np.float16, 8, 12),
+                         compression="ZIP", tiles=(4, 4, "RIPMAP", "UP"),
+                         name="thumb")])
+            else:
+                enc = encode_exr(ch, comp, origin=origin, line_order=order,
+                                 **kw)
+            assert all(enc.packed), (comp, enc.packed)
+            path = root / scene / f"{i:05d}.exr"
+            path.write_bytes(enc.data)
+            img = np.stack([enc.held[n].astype(np.float32) for n in "RGBA"
+                            if n in ch], -1)
+            frames[path.name, scene] = img
+    jax_expected(root, frames)
+
+
 def jax_expected(root, frames):
     """<scene>/expected/*.png under `root`: what the JAX script writes for
     the arrays `frames` ((file name, scene) -> (H, W, 4) float32)."""
@@ -117,6 +165,7 @@ def jax_expected(root, frames):
 if __name__ == "__main__":
     write_exrs()
     write_piz_exrs()
+    write_more_exrs()
     for p in sorted(OUT.rglob("*")):
         if p.is_file():
             print(f"{os.path.getsize(p):8d} {p.relative_to(REPO)}")

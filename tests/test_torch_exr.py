@@ -6,6 +6,7 @@ test wrote."""
 import importlib.util
 import os
 import shutil
+import struct
 from pathlib import Path
 
 import imageio.v2 as imageio
@@ -80,14 +81,28 @@ def test_compressed_blocks_are_smaller(tmp_path):
     assert sizes["RLE"] < sizes["NONE"]
 
 
+def _no_part_headers(path, ch):
+    """The multi-part flag and then the empty header that ends the list."""
+    path.write_bytes(b"\x76\x2f\x31\x01" + struct.pack("<I", 2 | 0x1000)
+                     + b"\0")
+
+
 @pytest.mark.parametrize("kind,match", [
-    (dict(compression="B44"), "B44 compression"),
-    (dict(version_flags=0x200), "tiled"),
-    (dict(version_flags=0x1000), "multi-part"),
+    (dict(compression="HTJ2K"), "HTJ2K compression"),
+    (dict(version_flags=0x200), "tiled flag is set but the header has no "
+                                "tiles attribute"),
+    (_no_part_headers, "multi-part flag is set but the file has no part "
+                       "headers"),
     (dict(version_flags=0x800), "deep")])
 def test_refusals_name_what_they_refuse(tmp_path, kind, match):
+    """What the reader still refuses: HTJ2K compression (the writer stores
+    its blocks as they are), a tiled flag without the tiles attribute, a
+    multi-part flag without part headers, and deep files."""
     path = tmp_path / "f.exr"
-    write_exr(path, _frame(0, 4, 4), **kind)
+    if callable(kind):
+        kind(path, _frame(0, 4, 4))
+    else:
+        write_exr(path, _frame(0, 4, 4), **kind)
     with pytest.raises(ValueError, match=match) as e:
         read_exr(path)
     assert str(path) in str(e.value)
